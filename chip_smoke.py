@@ -23,6 +23,20 @@ Phases (any failure exits non-zero before a result is printed):
    per frame, ATE and the cuboid's error against the synthetic truth.
 5. a small reference: the same online run at 320x240 over 3 frames on the
    card and on the CPU (the plain path) must agree.
+6. the monocular ORB tracker at full width: MonocularTracker.track() over
+   the same 58-frame 640x480 orbit at the repo's TUM-cabinet preset (1500
+   features, 8 levels, loop closing off), then final_trajectory(). Prints
+   frames tracked, keyframes, map points, scaled ATE, ms per tracked frame
+   and per keyframe frame, the profiler's per-stage split, and the device
+   busy share over 6 frames under torch.profiler. The tracker path runs no
+   hand kernel: the kernel counts are reset before it and read after it.
+7. tracker card vs CPU: the 14-frame 320x240 tracker sequence of
+   tests/test_torch_tracker.py on the card and on the CPU, both with the
+   local-BA fold forced synchronous; the same frames tracked, the same
+   keyframe count, and poses that agree up to the monocular gauge:
+   rotations within TRACKER_ROT_TOL, camera centres within
+   TRACKER_CENTRE_TOL (RMS) after a Sim3 alignment. The card runs twice,
+   and whether the two runs are bit-identical is printed.
 
 The second-to-last line is a JSON object of the kernels and their numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -47,6 +61,14 @@ SLICE_FRAMES = 58
 SLICE_WH = (640, 480)
 DETECTOR_TOL = 1e-4   # packed top-k fields, kernel vs plain EDT (same card)
 SMALL_TOL = 5e-3      # card vs CPU online run (see tests/test_torch_slice.py)
+TRACKER_MIN_TRACKED = 0.7  # share of the 58 frames phase 6 must track
+TRACKER_ATE_MAX = 0.6      # m: phase 6 read 0.2811 on its first card run (JAX: 0.216)
+# phase 7, card vs CPU up to the monocular gauge (the map's scale is free and
+# float rounding moves it by a few percent): rotations, and the camera
+# centres' RMS after a Sim3 alignment. Four card runs read <= 2.6e-3 and
+# <= 5.8e-4.
+TRACKER_ROT_TOL = 1e-2
+TRACKER_CENTRE_TOL = 5e-3
 
 
 def log(*a):
@@ -246,6 +268,171 @@ def phase5_small_reference(dev):
     log(f"[small] 3 frames 320x240 on the card and on the CPU agree within {SMALL_TOL}")
 
 
+def _always_fold_tracker():
+    """MonocularTracker folding each local BA at once: the card's
+    event-polled fold may land a frame later than the CPU's, which changes
+    the map."""
+    from cube_slam_tpu_torch.slam.system import MonocularTracker
+
+    class AlwaysFold(MonocularTracker):
+        def _apply_pending_map(self, only_if_ready=False):
+            return super()._apply_pending_map(only_if_ready=False)
+
+    return AlwaysFold
+
+
+def _scaled_ate(traj, truth):
+    from cube_slam_tpu_torch.slam.tracking import evaluate_ate_scaled
+
+    est = [(fid, np.linalg.inv(T)) for fid, T in traj if T is not None]
+    if len(est) < 3:
+        return float("nan")
+    return evaluate_ate_scaled(np.stack([T for _, T in est]), np.stack([truth[f] for f, _ in est]))
+
+
+def _device_busy_share(trk, frames):
+    """Device busy share over `frames` under torch.profiler: the union of
+    the card's kernel and copy intervals over the host wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for g in frames:
+            trk.track(g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    iv = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
+    busy, end = 0.0, -1.0
+    for a, b in iv:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in dev_events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return len(iv), busy * 1e-6, wall, top
+
+
+def phase6_tracker(dev, seq):
+    from cube_slam_tpu_torch.ops import hopper_kernels as hk
+    from cube_slam_tpu_torch.slam.system import MonocularTracker, TrackerConfig
+    from cube_slam_tpu_torch.utils import profiler
+
+    N = seq.num_frames
+    frames = [seq.gray(f) for f in range(N)]
+    truth = [seq.truth_Twc(f) for f in range(N)]
+    # the repo's TUM-cabinet preset (cube_slam_tpu/config.py: OrbConfig
+    # n_features 1500, n_levels 8; loop closing off); other fields default
+    cfg = TrackerConfig(n_features=1500, n_levels=8, enable_loop_closing=False)
+    trk = MonocularTracker(seq.K, seq.wh, cfg, device=dev)
+    profiler.reset()
+    profiler.enable()
+    torch.cuda.synchronize()
+    hk.edt_launches = 0
+    ms, kind = [], []
+    t_all = time.perf_counter()
+    for f, g in enumerate(frames):
+        was = trk.state
+        t0 = time.perf_counter()
+        out = trk.track(g)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        kind.append("lost" if out is None else "init" if was == "NOT_INITIALIZED"
+                    else "kf" if trk.last_kf_frame_id == f else "tracked")
+    traj = trk.final_trajectory()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    launches = hk.edt_launches
+    profiler.disable()
+    spans = profiler.aggregated()
+    profiler.reset()
+
+    tracked = [fid for fid, T in traj if T is not None]
+    ate = _scaled_ate(traj, truth)
+    ate_tracked = _scaled_ate(trk.trajectory, truth)
+    n_kf, n_mp = int(trk.map.kf_valid.sum()), int(trk.map.mp_valid.sum())
+    init = kind.index("init") if "init" in kind else None
+    med = lambda k: statistics.median([t for t, c in zip(ms, kind) if c == k]) if k in kind else float("nan")  # noqa: E731
+    mean = lambda k: statistics.mean([t for t, c in zip(ms, kind) if c == k]) if k in kind else float("nan")  # noqa: E731
+    log(f"[tracker] {N} frames {seq.wh[0]}x{seq.wh[1]}, 1500 features x 8 levels: initialized at frame "
+        f"{init}; tracked {len(tracked)}/{N}; keyframes {n_kf}; map points {n_mp}; scaled ATE "
+        f"{ate:.4f} m (final trajectory), {ate_tracked:.4f} m (as tracked)")
+    log(f"[tracker] {N / wall:.3f} frames/s of track() ({wall:.2f} s, host clock, synchronized per "
+        f"frame); tracked non-keyframe frames: median {med('tracked'):.2f} ms, mean "
+        f"{mean('tracked'):.2f} ms ({kind.count('tracked')}); keyframe frames: median {med('kf'):.2f} ms, "
+        f"mean {mean('kf'):.2f} ms ({kind.count('kf')}); untracked frames {kind.count('lost')}")
+    split = {name: spans.get(name, (0.0, 0, 0, 0, 0)) for name in
+             ("track.dispatch", "track.result_read", "track.rescue", "kf.total", "kf.ba_dispatch",
+              "ba.fold", "step.orb", "step.motion", "step.local_search", "step.final_pose")}
+    log("[tracker] split (total ms / calls): "
+        + "; ".join(f"{k} {v[0]:.1f}/{v[4]}" for k, v in split.items())
+        + " — step_frame = track.dispatch + track.result_read, and step.* its stages' host "
+        "queueing; local BA = kf.ba_dispatch + ba.fold")
+    log(f"[tracker] EDT launches during the tracker run: {launches} (its path runs no hand kernel)")
+
+    # device busy share: a second tracker, 6 frames profiled after 20
+    trk2 = MonocularTracker(seq.K, seq.wh, cfg, device=dev)
+    for g in frames[:20]:
+        trk2.track(g)
+    n_ev, busy, pwall, top = _device_busy_share(trk2, frames[20:26])
+    if n_ev:
+        log(f"[tracker] device busy share over frames 20-25 under torch.profiler: "
+            f"{100 * busy / pwall:.1f}% ({busy * 1e3:.1f} ms busy of {pwall * 1e3:.1f} ms wall, "
+            f"{n_ev} device events)")
+        log("[tracker] device time by kernel over those frames: "
+            + "; ".join(f"{name[:60]} {us / 1e3:.1f} ms" for name, us in top))
+    else:
+        log("[tracker] device busy share: not measured (torch.profiler recorded no device events)")
+
+    assert init is not None, "the tracker never initialized"
+    assert len(tracked) >= TRACKER_MIN_TRACKED * N, f"tracked only {len(tracked)}/{N}"
+    assert np.isfinite(ate) and ate < TRACKER_ATE_MAX, f"scaled ATE {ate}"
+    assert launches == 0
+
+
+def phase7_tracker_card_vs_cpu(dev):
+    from cube_slam_tpu_torch.slam.system import TrackerConfig
+    from cube_slam_tpu_torch.slam.tracking import evaluate_ate_scaled
+    from cube_slam_tpu_torch.utils import synth
+
+    K = np.array([[320.0, 0, 160], [0, 320.0, 120], [0, 0, 1]], dtype=np.float32)
+    scene = synth.RoomScene(seed=2)
+    poses = synth.camera_path(14)
+    frames = [np.clip(scene.render(P, K, wh=(320, 240)), 0, 255).astype(np.uint8) for P in poses]
+    cfg = TrackerConfig(n_features=600, n_levels=3, max_kf=24, max_mp=4096, min_init_kps=80,
+                        min_init_matches=80, enable_loop_closing=False)
+    runs = []
+    for device in (dev, dev, "cpu"):
+        trk = _always_fold_tracker()(K, (320, 240), cfg, device=device)
+        for g in frames:
+            trk.track(g)
+        runs.append((trk.final_trajectory(), int(trk.map.kf_valid.sum()), int(trk.map.mp_valid.sum())))
+    (tg, kg, mg), (tg2, _, _), (tc, kc, mc) = runs
+    fg = [f for f, T in tg if T is not None]
+    fc = [f for f, T in tc if T is not None]
+    assert fg == fc, f"tracked frames differ: card {fg}, CPU {fc}"
+    assert kg == kc, f"keyframes differ: card {kg}, CPU {kc}"
+    repeat = all((a is None and b is None) or np.array_equal(a, b) for (_, a), (_, b) in zip(tg, tg2))
+    pairs = [(a, b) for (_, a), (_, b) in zip(tg, tc) if a is not None]
+    rot = max(float(np.abs(a[:3, :3] - b[:3, :3]).max()) for a, b in pairs)
+    Twc_g = np.stack([np.linalg.inv(a) for a, _ in pairs])
+    Twc_c = np.stack([np.linalg.inv(b) for _, b in pairs])
+    centre = evaluate_ate_scaled(Twc_g, Twc_c)
+    spread = lambda T: np.linalg.norm(T[:, :3, 3] - T[:, :3, 3].mean(0))  # noqa: E731
+    raw = max(float(np.abs(a - b).max()) for a, b in pairs)
+    assert rot <= TRACKER_ROT_TOL, f"rotations differ card vs CPU by {rot}"
+    assert centre <= TRACKER_CENTRE_TOL, f"Sim3-aligned camera centres differ card vs CPU by {centre}"
+    log(f"[tracker-small] 14 frames 320x240 on the card and on the CPU: tracked {fg[0]}-{fg[-1]} "
+        f"({len(fg)}) on both, keyframes {kg} on both, map points {mg} / {mc}; rotations within "
+        f"{rot:.3g} (bound {TRACKER_ROT_TOL}), Sim3-aligned centres RMS {centre:.3g} (bound "
+        f"{TRACKER_CENTRE_TOL}); map scale card/CPU {spread(Twc_g) / spread(Twc_c):.4f}, raw pose gap "
+        f"{raw:.3g}; two card runs bit-identical: {repeat}")
+
+
 def main():
     dev = phase0_device()
     phase1_build()
@@ -254,6 +441,8 @@ def main():
     kms, pms = phase3_detector(dev, seq)  # the EDT at the main path's own input
     launches = phase4_slice(dev, seq)
     phase5_small_reference(dev)
+    phase6_tracker(dev, seq)
+    phase7_tracker_card_vs_cpu(dev)
 
     log(json.dumps({"kernels": [{
         "name": "edt_l2",

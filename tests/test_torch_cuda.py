@@ -42,3 +42,44 @@ def test_edt_kernel_rejects_bad_input(cuda):
         hk.edt_l2_cuda(torch.zeros((1, 4, 4), dtype=torch.float32, device=cuda))
     with pytest.raises(ValueError):
         hk.edt_l2_cuda(torch.zeros((4, 4, 2), dtype=torch.bool, device=cuda).transpose(0, 1))
+
+
+def test_step_frame_card_vs_cpu(cuda):
+    """The tracker's per-frame step on the card against the CPU, from one
+    state: the port's tracker runs Gate A's frames 0-9 on the CPU, then
+    frame 10's step_frame runs on both devices from that map and tracker
+    state. The same acceptance; pose within 1e-3; inlier counts within 2%
+    and association tables 98% equal (float sums differ between devices,
+    and a match at a tie can flip)."""
+    from torch_parity_utils import GATE_A_CONFIG, GATE_A_K, gate_a_sequence
+
+    from cube_slam_tpu_torch.ops.orb import OrbPyramidConfig
+    from cube_slam_tpu_torch.slam import tracking as trk
+    from cube_slam_tpu_torch.slam.system import MonocularTracker, TrackerConfig
+
+    frames, _ = gate_a_sequence()
+    host = MonocularTracker(GATE_A_K, (320, 240), TrackerConfig(**GATE_A_CONFIG))
+    for f in frames[:10]:
+        host.track(f)
+    host.flush()
+    assert host.state == "OK"
+    m = host.map
+    vis, found = host._counters()
+    state = [host.last_Tcw, host.velocity, host.last_frame.mp.astype(np.int32)]
+    fields = [getattr(m, k) for k in ("mp_pos", "mp_desc", "mp_level", "mp_valid", "mp_normal",
+                                      "mp_min_dist", "mp_max_dist")]
+    wh = np.array([320, 240], np.float32)
+
+    def run(device):
+        t = [torch.as_tensor(np.ascontiguousarray(a).view(np.int32) if a.dtype == np.uint32 else a,
+                             device=device) for a in [frames[10]] + state + fields]
+        out = trk.step_frame(*t, vis.to(device), found.to(device),
+                             torch.as_tensor(GATE_A_K, device=device), torch.as_tensor(wh, device=device),
+                             orb_cfg=OrbPyramidConfig(600, n_levels=3))
+        return out[0].cpu().numpy(), out[1][2].cpu().numpy()
+
+    (sc, mc), (sg, mg) = run("cpu"), run(cuda)
+    assert sg[18] == sc[18] == 1.0
+    np.testing.assert_allclose(sg[:16], sc[:16], atol=1e-3)
+    assert abs(sg[17] - sc[17]) <= 0.02 * sc[17]
+    assert (mg == mc).mean() >= 0.98

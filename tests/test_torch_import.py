@@ -7,6 +7,7 @@ import pkgutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,9 +23,14 @@ def _modules():
     return sorted(m.name for m in pkgutil.walk_packages(cube_slam_tpu_torch.__path__, "cube_slam_tpu_torch."))
 
 
+SLICE2 = ["ops.orb", "ops.matching", "utils.profiler", "utils.metrics", "slam.state", "graph.ba",
+          "slam.initializer", "slam.pnp", "slam.tracking", "slam.loop_closing", "slam.system"]
+
+
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "cube_slam_tpu_torch.models.detector" in mods and len(mods) >= 15
+    assert "cube_slam_tpu_torch.models.detector" in mods and len(mods) >= 26
+    assert not {"cube_slam_tpu_torch." + m for m in SLICE2} - set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -49,6 +55,17 @@ def test_require_cuda_raises_without_a_card():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError):
         require_cuda()
+
+
+def test_tracker_on_cuda_raises_without_a_card():
+    """The tracker runs where it is told; asked for the card where there is
+    none, it raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from cube_slam_tpu_torch.slam.system import MonocularTracker, TrackerConfig
+
+    with pytest.raises((RuntimeError, AssertionError)):
+        MonocularTracker(np.eye(3), (320, 240), TrackerConfig(enable_loop_closing=False), device="cuda")
 
 
 def test_cpu_edt_takes_plain_path():

@@ -60,3 +60,72 @@ def synth_sequence(n_frames, wh=(320, 240), K=None):
     from cube_slam_tpu_torch.utils import synth
 
     return synth.SynthSequence(n_frames, K=K_HALF if K is None else K, wh=wh, scene=room_scene())
+
+
+# Gate A of the tracker slice: the tracker's test scene at video rate with
+# enough parallax between frames to initialize (320x240, uint8 frames)
+GATE_A_K = np.array([[320.0, 0, 160], [0, 320.0, 120], [0, 0, 1]], dtype=np.float32)
+GATE_A_CONFIG = dict(n_features=600, n_levels=3, max_kf=24, max_mp=4096,
+                     min_init_kps=80, min_init_matches=80, enable_loop_closing=False)
+
+
+def gate_a_sequence(n=14):
+    """(frames, truth Twc): RoomScene(seed=2) along camera_path(14)."""
+    from cube_slam_tpu_torch.utils import synth
+
+    scene = synth.RoomScene(seed=2)
+    poses = synth.camera_path(n)
+    frames = [np.clip(scene.render(poses[i], GATE_A_K, wh=(320, 240)), 0, 255).astype(np.uint8)
+              for i in range(n)]
+    return frames, poses
+
+
+def sync_fold_jax_tracker(cfg):
+    """The JAX MonocularTracker with its local-BA fold forced synchronous:
+    its own fold polls the device and lands a frame earlier or later by
+    timing, which changes the map. The port's CPU fold is always ready, so
+    this is the run it is held against."""
+    from cube_slam_tpu.slam import system as jsys
+
+    class SyncFold(jsys.MonocularTracker):
+        def _apply_pending_map(self, only_if_ready=False):
+            return super()._apply_pending_map(only_if_ready=False)
+
+    return SyncFold(GATE_A_K, (320, 240), jsys.TrackerConfig(**cfg))
+
+
+def carry_tracker(jtrk, device="cpu"):
+    """A port MonocularTracker in the state of a JAX one: its map (through
+    state.map_state_from_arrays), pose, motion model, reference keyframe,
+    last frame with its kp->map-point table, keyframe database and the
+    device visibility counters. Any in-flight local BA of the JAX tracker
+    must have been folded."""
+    from cube_slam_tpu_torch.slam import loop_closing as tlc
+    from cube_slam_tpu_torch.slam import state as tstate
+    from cube_slam_tpu_torch.slam import system as tsys
+
+    assert jtrk._pending_ba is None and jtrk._pending is None
+    cfg = tsys.TrackerConfig(**vars(jtrk.cfg))
+    t = tsys.MonocularTracker(jtrk.K, jtrk.img_wh, cfg, device=device)
+    t.map = tstate.map_state_from_arrays(vars(jtrk.map))
+    for name in ("state", "last_Tcw", "velocity", "frame_id", "last_kf_frame_id", "ref_kf",
+                 "tracked_inliers", "_last_rel"):
+        setattr(t, name, _copy(getattr(jtrk, name)))
+    t.trajectory = [(f, None if T is None else T.copy()) for f, T in jtrk.trajectory]
+    t._traj_rel = [(f, r, rf, T.copy()) for f, r, rf, T in jtrk._traj_rel]
+    lf = jtrk.last_frame
+    t.last_frame = tstate.FrameFeatures(xy=lf.xy.copy(), level=lf.level.copy(), angle=lf.angle.copy(),
+                                        desc=lf.desc.copy(), valid=lf.valid.copy(), mp=lf.mp.copy())
+    db = tlc.LoopDetector(min_gap_kfs=jtrk.loop_detector.min_gap_kfs)
+    db.signatures = {k: v.copy() for k, v in jtrk.loop_detector.signatures.items()}
+    db._order = dict(jtrk.loop_detector._order)
+    db._n_added = jtrk.loop_detector._n_added
+    t.loop_detector = db
+    if jtrk._mirror.vis_acc is not None:
+        t._vis_acc = torch.as_tensor(np.array(jtrk._mirror.vis_acc), device=device)
+        t._found_acc = torch.as_tensor(np.array(jtrk._mirror.found_acc), device=device)
+    return t
+
+
+def _copy(v):
+    return v.copy() if isinstance(v, np.ndarray) else v
