@@ -7,16 +7,20 @@ Phases (any failure exits non-zero before a result is printed):
 
 0. the device: a CUDA card must be present; prints its name and power limit
    (nvidia-smi) and the torch / CUDA versions.
-1. the build: the EDT CUDA kernel (csrc/edt.cu, nvcc for sm_90a) and the
-   host line-merge library (csrc/host/merge_lines.cpp, g++), with seconds.
+1. the build: the EDT CUDA kernels (csrc/edt.cu, nvcc for sm_90a) and the
+   host line-merge library (csrc/host/merge_lines.cpp, g++), with seconds,
+   and ptxas's registers, shared memory and spills of both EDT kernels.
 2. kernel against plain: the EDT kernel must be bit-identical
-   (torch.equal) to the plain PyTorch EDT on the card, on random and
-   degenerate masks; both are timed with CUDA events.
+   (torch.equal) to the plain PyTorch EDT on the card, on random, ragged
+   and degenerate masks. Then at (1, 3, 12) x 480 x 640: the column pass
+   and the row pass timed apart, the whole kernel per call, and the plain
+   EDT, beside the bound (see `edt_bound_ms`).
 3. the detector on one 640x480 synthetic frame with roll/pitch sampling,
    once through the kernel and once through the plain EDT; the packed
    top-k must agree. The EDT kernel is held against the plain version again
-   on the edge maps the detector hands it, and both are timed there (these
-   are the times in the kernels line). Prints detector ms per frame.
+   on the edge maps the detector hands it, and timed there beside its bound
+   (these are the numbers in the kernels line). Prints detector ms per
+   frame.
 4. the slice: ObjectSlamDemo.run_online over the 58-frame 640x480 synthetic
    orbit (graph capacity 64 frames, 5 LM iterations per frame), with the
    kernel launch counter reset just before it; prints frames/s, stage ms
@@ -92,6 +96,50 @@ def cuda_ms(fn, warmup=3, reps=20):
     return statistics.median(times)
 
 
+def graph_ms(fn, calls=20, reps=10):
+    """Device milliseconds of one fn(): a CUDA graph of `calls` back-to-back
+    calls replayed under CUDA events (median of `reps`), over `calls`. The
+    host's launch time is not in it; the graph's gaps between kernels are."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, warmup=2, reps=reps) / calls
+
+
+# H100 SXM peaks (NVIDIA's data sheet): FP32 outside the tensor cores, HBM3
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+
+# FP32 operations per pixel of the exact lower envelope (Felzenszwalb and
+# Huttenlocher): a forward and a backward scan down each column (an add and
+# a min each), then per row an amortised two parabola intersections per
+# source (~6 each) and one evaluation per output (a subtract and an FMA),
+# rounded up
+EDT_OPS_PER_PIXEL = 20
+
+
+def edt_bound_ms(shape):
+    """The least time the card could take for an exact EDT of a (B, H, W)
+    mask: EDT_OPS_PER_PIXEL operations per pixel at the FP32 peak, or 1 byte
+    in and 4 out per pixel at the HBM rate, whichever is larger. Returns
+    (ms, what bounds it)."""
+    B, H, W = shape
+    ops_s = EDT_OPS_PER_PIXEL * B * H * W / FP32_FLOPS
+    bytes_s = 5.0 * B * H * W / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
+
+
+def edt_brute_force_ms(shape):
+    """The floor of the algorithm the kernel runs, not of the function: the
+    brute-force min-plus's 2*B*H*W^2 operations (an add and a min per
+    candidate, the Pallas kernel's own CostEstimate) at the FP32 peak."""
+    B, H, W = shape
+    return 1e3 * 2.0 * B * H * W * W / FP32_FLOPS
+
+
 def phase0_device():
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
@@ -114,6 +162,27 @@ def phase1_build():
     _build.load("host")
     log(f"[build] cuda_kernels {_build.build_seconds['cuda_kernels']:.2f} s, "
         f"host {_build.build_seconds['host']:.2f} s")
+    report = ptxas_report(_build.build_logs["cuda_kernels"])
+    assert set(report) == {"edt_column_pass", "edt_row_pass"}, f"no ptxas report of both kernels: {report}"
+    for kernel, lines in report.items():
+        log(f"[build] ptxas {kernel}: " + "; ".join(lines))
+    log("[build] (both kernels take their shared memory dynamically, sized at launch: ptxas counts "
+        "only static shared memory)")
+
+
+def ptxas_report(log_text):
+    """ptxas -v's lines per EDT kernel: registers, shared memory, spills."""
+    import re
+
+    report, kernel = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?\S*?(edt_(?:column|row)_pass)", line)
+        if m:
+            kernel = m.group(1)
+            continue
+        if kernel and ("Used" in line or "spill" in line or "smem" in line):
+            report.setdefault(kernel, []).append(line.split(":", 1)[-1].strip() if "ptxas" in line else line.strip())
+    return report
 
 
 def phase2_edt(dev):
@@ -127,6 +196,10 @@ def phase2_edt(dev):
         "4x480x640 d=1%": rng.uniform(size=(4, 480, 640)) < 0.01,
         "4x480x640 d=10%": rng.uniform(size=(4, 480, 640)) < 0.10,
         "2x37x131": rng.uniform(size=(2, 37, 131)) < 0.05,
+        "3x7x100": rng.uniform(size=(3, 7, 100)) < 0.05,
+        "2x30x641": rng.uniform(size=(2, 30, 641)) < 0.02,
+        "1x20x4096": rng.uniform(size=(1, 20, 4096)) < 0.002,
+        "12x480x640 d=1%": rng.uniform(size=(12, 480, 640)) < 0.01,
         "all false 1x480x640": np.zeros((1, 480, 640), dtype=bool),
         "all true 1x480x640": np.ones((1, 480, 640), dtype=bool),
         "1x1x1": np.ones((1, 1, 1), dtype=bool),
@@ -145,11 +218,22 @@ def phase2_edt(dev):
             assert torch.all(k == torch.sqrt(torch.tensor(1e9, device=dev))), name
     log(f"[edt] kernel == plain (torch.equal) on {len(cases)} cases")
 
-    for name in ("1x480x640 d=1%", "4x480x640 d=1%"):
-        mc = torch.as_tensor(cases[name], device=dev)
+    for B in (1, 3, 12):
+        mc = torch.as_tensor(rng.uniform(size=(B, 480, 640)) < 0.01, device=dev)
+        g2 = torch.empty(mc.shape, dtype=torch.float32, device=dev)
+        out = torch.empty_like(g2)
+        col = graph_ms(lambda: hk.edt_column_pass_cuda(mc, g2))
+        row = graph_ms(lambda: hk.edt_row_pass_cuda(g2, out))
+        dev_ms = graph_ms(lambda: hk.edt_l2(mc))
         kms = cuda_ms(lambda: hk.edt_l2(mc))
         pms = cuda_ms(lambda: dt.edt_l2(mc))
-        log(f"[edt] {name}: kernel {kms:.4f} ms, plain {pms:.4f} ms (median of 20, CUDA events)")
+        bound, by = edt_bound_ms(mc.shape)
+        brute = edt_brute_force_ms(mc.shape)
+        log(f"[edt] ({B}, 480, 640) d=1%: column pass {col:.4f} ms, row pass {row:.4f} ms, whole kernel "
+            f"{dev_ms:.4f} ms (device time: CUDA graph of 20 calls); per call {kms:.4f} ms, plain "
+            f"{pms:.4f} ms (median of 20, CUDA events); bound {bound:.4f} ms ({by}), "
+            f"{100 * bound / dev_ms:.1f}% of it in device time, {100 * bound / kms:.1f}% per call; "
+            f"brute-force floor {brute:.4f} ms, {100 * brute / dev_ms:.1f}% of it in device time")
     return max_err
 
 
@@ -200,10 +284,19 @@ def phase3_detector(dev, seq):
     k = hk.edt_l2(edges)
     torch.cuda.synchronize()
     assert torch.equal(k, dt.edt_l2(edges)), "EDT kernel differs from plain on the detector's edges"
-    edt_ms = cuda_ms(lambda: hk.edt_l2(edges))
-    edt_plain_ms = cuda_ms(lambda: dt.edt_l2(edges))
+    edt = {"ms": cuda_ms(lambda: hk.edt_l2(edges)), "plain_ms": cuda_ms(lambda: dt.edt_l2(edges)),
+           "device_ms": graph_ms(lambda: hk.edt_l2(edges))}
+    edt["bound_ms"], edt["bound_by"] = edt_bound_ms(edges.shape)
+    edt["bound_share"] = edt["bound_ms"] / edt["ms"]
+    edt["brute_force_ms"] = edt_brute_force_ms(edges.shape)
     log(f"[edt] the detector's own edge maps {tuple(edges.shape)}: kernel == plain (torch.equal); "
-        f"kernel {edt_ms:.4f} ms, plain {edt_plain_ms:.4f} ms (median of 20, CUDA events)")
+        f"kernel {edt['ms']:.4f} ms per call, plain {edt['plain_ms']:.4f} ms (median of 20, CUDA events); "
+        f"device time {edt['device_ms']:.4f} ms (CUDA graph of 20 calls); bound {edt['bound_ms']:.5f} ms "
+        f"({edt['bound_by']}: 5 B per pixel / 3.35 TB/s against {EDT_OPS_PER_PIXEL} operations per pixel "
+        f"/ 67 TFLOP/s), {100 * edt['bound_share']:.1f}% of it per call, "
+        f"{100 * edt['bound_ms'] / edt['device_ms']:.1f}% in device time; brute-force floor "
+        f"{edt['brute_force_ms']:.4f} ms (2*B*H*W^2 / 67 TFLOP/s), "
+        f"{100 * edt['brute_force_ms'] / edt['device_ms']:.1f}% of it in device time")
 
     ms = cuda_ms(lambda: det_mod.detect_lattice_batch(**args), warmup=2, reps=10)
     ms_plain = cuda_ms(lambda: det_mod._detect_lattice(**args, edt=dt.edt_l2), warmup=2, reps=10)
@@ -211,7 +304,7 @@ def phase3_detector(dev, seq):
         f"top-k kernel vs plain max |diff| {gap:.3g}; {ms:.3f} ms/frame with the kernel, "
         f"{ms_plain:.3f} ms/frame with the plain EDT (median of 10, CUDA events); "
         f"EDT launches per call {launches}")
-    return edt_ms, edt_plain_ms
+    return edt
 
 
 def phase4_slice(dev, seq):
@@ -438,7 +531,7 @@ def main():
     phase1_build()
     max_err = phase2_edt(dev)
     seq = synth_sequence(SLICE_FRAMES, SLICE_WH)
-    kms, pms = phase3_detector(dev, seq)  # the EDT at the main path's own input
+    edt = phase3_detector(dev, seq)  # the EDT at the main path's own input
     launches = phase4_slice(dev, seq)
     phase5_small_reference(dev)
     phase6_tracker(dev, seq)
@@ -451,8 +544,14 @@ def main():
         "replaces": "cube_slam_tpu/ops/pallas_kernels.py:27",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": kms,
-        "plain_ms": pms,
+        "ms": edt["ms"],
+        "plain_ms": edt["plain_ms"],
+        "bound_ms": edt["bound_ms"],
+        "bound_by": edt["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes an exact EDT
+        "bound_share": edt["bound_share"],
+        "device_ms": edt["device_ms"],
+        "brute_force_ms": edt["brute_force_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

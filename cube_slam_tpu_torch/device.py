@@ -16,6 +16,13 @@ def require_cuda() -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def resolve(device) -> torch.device:
+    """The device an entry point runs on: `device` when given, else the
+    card (raising where there is none). A caller that wants the CPU says
+    device="cpu"."""
+    return require_cuda() if device is None else as_device(device)
+
+
 def as_device(device) -> torch.device:
     """Normalise a device argument; a bare "cuda" names the current card, so
     per-device caches key on one object per card."""

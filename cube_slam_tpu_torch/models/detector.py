@@ -37,13 +37,13 @@ numpy (the line merge is exact-greedy and order-dependent -> ops/lines.py).
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..device import as_device, table
+from ..device import resolve, table
 from ..ops import hopper_kernels
 from ..ops import image as im_ops
 from ..ops import lines as line_ops
@@ -652,7 +652,7 @@ class CuboidProposal:
 class CuboidDetector:
     """Mirror of the reference detector's mode flags
     (detect_3d_cuboid.h:53-80) over the batched lattice; `device` is where
-    the lattice runs."""
+    the lattice runs (default: the card)."""
 
     consider_config_1: bool = True
     consider_config_2: bool = True
@@ -671,15 +671,15 @@ class CuboidDetector:
     top_k: int = 16
 
     K: np.ndarray | None = None
-    device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    device: torch.device | None = None
 
     def __post_init__(self):
-        self.device = as_device(self.device)
+        self.device = resolve(self.device)
         if self.K is not None:
             self.set_calibration(self.K)
 
     @classmethod
-    def from_config(cls, d: dict, device="cpu"):
+    def from_config(cls, d: dict, device=None):
         """Build from `dataclasses.asdict` of a cube_slam_tpu CuboidDetector
         (numpy values)."""
         return cls(**d, device=device)

@@ -21,7 +21,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..device import as_device
+from ..device import resolve
 from ..graph import factors
 from ..graph.lm import lm_optimize
 from ..models import cuboid as cb
@@ -53,11 +53,9 @@ def optimize_graph(
     """One `graph.optimize(num_iters)` call over the active prefix.
 
     Inputs may be numpy arrays or tensors; they are placed on `device`
-    (default: the device of `tcw` if it is a tensor, else the CPU). Returns
-    tensors (tcw, cube_pose, cube_scale, chi2)."""
-    if device is None:
-        device = tcw.device if torch.is_tensor(tcw) else torch.device("cpu")
-    device = as_device(device)
+    (default: the device of `tcw` if it is a tensor, else the card).
+    Returns tensors (tcw, cube_pose, cube_scale, chi2)."""
+    device = resolve(tcw.device if device is None and torch.is_tensor(tcw) else device)
     tcw = _t(tcw, device)
     cube_pose = _t(cube_pose, device)
     cube_scale = _t(cube_scale, device)
@@ -132,10 +130,10 @@ class ObjectSlamDemo:
     ("lines", "detect", "lm"); each stage ends in a device-to-host read of
     its result, so the times cover the device work without extra syncs."""
 
-    def __init__(self, max_frames=64, num_lm_iters=5, device="cpu"):
+    def __init__(self, max_frames=64, num_lm_iters=5, device=None):
         self.max_frames = max_frames
         self.num_lm_iters = num_lm_iters
-        self.device = as_device(device)
+        self.device = resolve(device)
         self.stage_seconds = {"lines": [], "detect": [], "lm": []}
 
     def run_offline(self, seq: io_utils.CabinetSequence | None = None):

@@ -35,7 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..device import as_device
+from ..device import resolve
 from ..graph import ba
 from ..ops import matching, orb
 from ..utils import np_geometry as np_geo
@@ -90,7 +90,7 @@ class TrackerConfig:
 class MonocularTracker:
     """TrackMonocular-equivalent API over tensor steps on `device`."""
 
-    def __init__(self, K, img_wh, config: TrackerConfig | None = None, device="cpu"):
+    def __init__(self, K, img_wh, config: TrackerConfig | None = None, device=None):
         self.cfg = config or TrackerConfig()
         if self.cfg.enable_loop_closing:
             raise NotImplementedError(
@@ -100,7 +100,7 @@ class MonocularTracker:
             raise NotImplementedError(
                 "pipeline=True: the software-pipelined dispatch is not ported; it "
                 "comes only if a profile shows the host waiting on the card")
-        self.device = as_device(device)
+        self.device = resolve(device)
         self.K = np.asarray(K, dtype=np.float32)
         self.img_wh = np.asarray(img_wh, dtype=np.float32)
         self.orb_cfg = orb.OrbPyramidConfig(n_features=self.cfg.n_features,

@@ -23,12 +23,38 @@ def cuda():
     return torch.device("cuda")
 
 
+def _mask(shape, density):
+    """A seeded random mask; density "rect" puts 10% edges inside one
+    rectangle per map, as the detector's `strong & rect` does, and "one
+    empty" leaves map 1 of the batch without edges (its rows have no finite
+    vertical distance)."""
+    r = np.random.default_rng(0)
+    if density == "rect":
+        B, H, W = shape
+        m = np.zeros(shape, dtype=bool)
+        m[:, H // 4:3 * H // 4, W // 3:2 * W // 3] = r.uniform(size=(B, 3 * H // 4 - H // 4, 2 * W // 3 - W // 3)) < 0.1
+        return m
+    if density == "one empty":
+        m = r.uniform(size=shape) < 0.05
+        m[1] = False
+        return m
+    return r.uniform(size=shape) < density
+
+
 @pytest.mark.parametrize("shape,density", [
     ((2, 37, 131), 0.05), ((1, 480, 640), 0.01), ((4, 480, 640), 0.1),
     ((1, 48, 64), 0.0), ((1, 48, 64), 1.0), ((1, 1, 1), 1.0), ((3, 1, 700), 0.01),
+    # widths around the kernel's tiles (8 outputs, 16 sources, 32-column strips)
+    ((2, 64, 1), 0.1), ((1, 64, 31), 0.05), ((2, 40, 33), 0.05), ((1, 50, 131), 0.02),
+    ((1, 30, 641), 0.01), ((1, 20, 4096), 0.002),
+    ((1, 1, 33), 0.2),    # H = 1
+    ((3, 7, 100), 0.05),  # 21 rows x 13 tiles: the last block is partly empty
+    ((3, 70, 90), "one empty"), ((4, 480, 640), "rect"),
+    ((12, 480, 640), 0.01),  # 4 boxes x 3 heights
+    ((1, 5000, 40), 0.0005),  # H > 4096: the column pass takes over 48 KB of shared memory
 ])
 def test_edt_kernel_bit_identical_to_plain(cuda, shape, density):
-    m = torch.as_tensor(np.random.default_rng(0).uniform(size=shape) < density, device=cuda)
+    m = torch.as_tensor(_mask(shape, density), device=cuda)
     before = hk.edt_launches
     out = hk.edt_l2(m)
     torch.cuda.synchronize()
@@ -37,11 +63,47 @@ def test_edt_kernel_bit_identical_to_plain(cuda, shape, density):
     assert torch.equal(out, tdt.edt_l2(m))
 
 
+@pytest.mark.parametrize("shape", [(2, 37, 131), (1, 480, 640), (3, 33, 4096)])
+def test_edt_passes_match_plain(cuda, shape):
+    """Each pass alone: the column pass gives the plain version's g², and
+    the row pass over it the plain EDT. Neither counts as a launch of
+    edt_l2."""
+    m = torch.as_tensor(_mask(shape, 0.02), device=cuda)
+    g2 = torch.empty(shape, dtype=torch.float32, device=cuda)
+    out = torch.empty_like(g2)
+    before = hk.edt_launches
+    hk.edt_column_pass_cuda(m, g2)
+    hk.edt_row_pass_cuda(g2, out)
+    torch.cuda.synchronize()
+    assert hk.edt_launches == before
+    g = tdt.vertical_dist(m)
+    assert torch.equal(g2, g * g)
+    assert torch.equal(out, tdt.edt_l2(m))
+
+
+def test_edt_row_pass_into_unaligned_view(cuda):
+    """The row pass stores float4s only where `out` is 16-byte aligned: into
+    a contiguous view with a storage offset it stores floats, and its output
+    is the same."""
+    m = torch.as_tensor(_mask((2, 24, 64), 0.05), device=cuda)
+    g2 = torch.empty(m.shape, dtype=torch.float32, device=cuda)
+    buf = torch.zeros(m.numel() + 1, dtype=torch.float32, device=cuda)
+    out = buf[1:].view(m.shape)
+    assert out.is_contiguous() and out.data_ptr() % 16 != 0
+    hk.edt_column_pass_cuda(m, g2)
+    hk.edt_row_pass_cuda(g2, out)
+    torch.cuda.synchronize()
+    assert float(buf[0]) == 0.0
+    assert torch.equal(out, tdt.edt_l2(m))
+
+
 def test_edt_kernel_rejects_bad_input(cuda):
     with pytest.raises(TypeError):
         hk.edt_l2_cuda(torch.zeros((1, 4, 4), dtype=torch.float32, device=cuda))
     with pytest.raises(ValueError):
         hk.edt_l2_cuda(torch.zeros((4, 4, 2), dtype=torch.bool, device=cuda).transpose(0, 1))
+    with pytest.raises(ValueError):
+        hk.edt_l2_cuda(torch.zeros((1, 2, hk._MAX_W + 1), dtype=torch.bool, device=cuda))
 
 
 def test_step_frame_card_vs_cpu(cuda):
@@ -58,7 +120,7 @@ def test_step_frame_card_vs_cpu(cuda):
     from cube_slam_tpu_torch.slam.system import MonocularTracker, TrackerConfig
 
     frames, _ = gate_a_sequence()
-    host = MonocularTracker(GATE_A_K, (320, 240), TrackerConfig(**GATE_A_CONFIG))
+    host = MonocularTracker(GATE_A_K, (320, 240), TrackerConfig(**GATE_A_CONFIG), device="cpu")
     for f in frames[:10]:
         host.track(f)
     host.flush()

@@ -104,7 +104,7 @@ def test_detect_cuboid_top1_matches_jax(frame):
     gray, box, Twc, lines, K = frame
     out = []
     for mod in (jdet, tdet):
-        d = mod.CuboidDetector()
+        d = mod.CuboidDetector() if mod is jdet else mod.CuboidDetector(device="cpu")
         d.set_calibration(K)
         d.nominal_skew_ratio = 2.0
         d.whether_sample_cam_roll_pitch = True

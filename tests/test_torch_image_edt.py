@@ -89,6 +89,41 @@ def test_plain_edt_bit_identical_to_xla_edt(name):
         assert np.all(out == 0.0)
 
 
+def _round_once_to_f32(n: int) -> np.float32:
+    """A non-negative integer rounded once to float32 (to nearest, ties to
+    even)."""
+    e = n.bit_length() - 24
+    if e <= 0:
+        return np.float32(n)
+    q, r = divmod(n, 1 << e)
+    if r > 1 << (e - 1) or (r == 1 << (e - 1) and q & 1):
+        q += 1
+    return np.float32(q << e)
+
+
+def test_fma_form_of_the_row_pass_is_exact():
+    """The CUDA row pass evaluates each candidate as fmaf(d, d, g²), the
+    exact d·d + g² rounded once to float32; the plain version adds float32
+    d² to g² in float32. They agree when d² is an exact float32, which the
+    kernel's width limit (hopper_kernels._MAX_W = 4096) keeps. Checked over
+    every g² the column pass gives for maps up to 4096 rows (k² for
+    k <= 4096, and 1e9² for an empty column) and every d <= 4096."""
+    d = np.arange(4097, dtype=np.int64)
+    d2 = torch.as_tensor(d.astype(np.float32)) ** 2  # the plain version's (x - u)²
+    for k0 in range(0, 4097, 512):
+        k = np.arange(k0, min(k0 + 512, 4097), dtype=np.int64)
+        g = torch.as_tensor(k.astype(np.float32))
+        plain = ((g * g)[:, None] + d2[None, :]).numpy()
+        exact = k[:, None] ** 2 + d[None, :] ** 2  # < 2^53: exact as float64
+        assert np.array_equal(plain, exact.astype(np.float64).astype(np.float32)), k0
+    g_empty = torch.tensor(1e9, dtype=torch.float32)
+    g2 = g_empty * g_empty
+    plain = (g2 + d2).numpy()
+    exact = [_round_once_to_f32(int(g2.item()) + int(v) ** 2) for v in d]
+    assert np.array_equal(plain, np.array(exact, dtype=np.float32))
+    assert _round_once_to_f32(2 ** 24 + 1) == 2 ** 24 and _round_once_to_f32(2 ** 24 + 3) == 2 ** 24 + 4
+
+
 def test_edt_batched_equals_per_map():
     r = rng(1)
     m = torch.as_tensor(r.uniform(size=(3, 29, 53)) < np.array([0.0, 0.02, 0.3])[:, None, None])

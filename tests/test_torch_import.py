@@ -68,6 +68,41 @@ def test_tracker_on_cuda_raises_without_a_card():
         MonocularTracker(np.eye(3), (320, 240), TrackerConfig(enable_loop_closing=False), device="cuda")
 
 
+def _entry_point(name):
+    """Each entry point built with no device argument."""
+    from cube_slam_tpu_torch.models.detector import CuboidDetector
+    from cube_slam_tpu_torch.slam.object_slam import ObjectSlamDemo, optimize_graph
+    from cube_slam_tpu_torch.slam.system import MonocularTracker, TrackerConfig
+
+    if name == "ObjectSlamDemo":
+        return ObjectSlamDemo(max_frames=8)
+    if name == "MonocularTracker":
+        return MonocularTracker(np.eye(3), (320, 240), TrackerConfig(enable_loop_closing=False))
+    if name == "CuboidDetector":
+        return CuboidDetector()
+    if name == "CuboidDetector.from_config":
+        return CuboidDetector.from_config({"max_lines": 16})
+    F = 2
+    eye = np.tile(np.eye(4, dtype=np.float32), (F, 1, 1))
+    return optimize_graph(eye, eye[0], np.ones(3, np.float32), eye, np.ones((F, 3), np.float32),
+                          np.ones(F, np.float32), np.ones(F, bool), eye, F, num_iters=1, max_frames=F)
+
+
+@pytest.mark.parametrize("name", ["ObjectSlamDemo", "MonocularTracker", "CuboidDetector",
+                                  "CuboidDetector.from_config", "optimize_graph"])
+def test_entry_points_default_to_the_card(name):
+    """Without a device the entry points run on the card: where there is
+    one they land on it, and where there is none they raise instead of
+    running on the CPU."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            _entry_point(name)
+        return
+    built = _entry_point(name)
+    where = built[0].device if name == "optimize_graph" else built.device
+    assert where.type == "cuda"
+
+
 def test_cpu_edt_takes_plain_path():
     """A CPU tensor, batched or a single map, takes the plain version and
     launches nothing."""

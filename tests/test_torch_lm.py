@@ -78,7 +78,7 @@ def test_optimize_graph_exact_recovery_matches_jax():
 
     args = (tcw_init, cpose, cscale, meas_pose, meas_scale, quality, has, odom)
     j = jos.optimize_graph(*[jnp.asarray(a) for a in args], jnp.asarray(n), num_iters=20, max_frames=F)
-    t = tos.optimize_graph(*args, n, num_iters=20, max_frames=F)
+    t = tos.optimize_graph(*args, n, num_iters=20, max_frames=F, device="cpu")
     j, t = to_np(j), to_np(t)
     assert float(t[3]) < 1e-3  # the f32 convergence floor, as tests/test_graph.py
     for a, b, what in zip(j, t, ["tcw", "cube_pose", "cube_scale"]):

@@ -30,7 +30,7 @@ def runs():
     J = sync_fold_jax_tracker(GATE_A_CONFIG)
     for f in frames:
         J.track(f)
-    P = tsys.MonocularTracker(GATE_A_K, (320, 240), tsys.TrackerConfig(**GATE_A_CONFIG))
+    P = tsys.MonocularTracker(GATE_A_K, (320, 240), tsys.TrackerConfig(**GATE_A_CONFIG), device="cpu")
     P.metrics = metrics.MetricsRecorder()
     profiler.reset()
     profiler.enable()
