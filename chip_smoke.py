@@ -32,8 +32,9 @@ Phases (any failure exits non-zero before a result is printed):
    features, 8 levels, loop closing off), then final_trajectory(). Prints
    frames tracked, keyframes, map points, scaled ATE, ms per tracked frame
    and per keyframe frame, the profiler's per-stage split, and the device
-   busy share over 6 frames under torch.profiler. The tracker path runs no
-   hand kernel: the kernel counts are reset before it and read after it.
+   busy share over 6 frames under torch.profiler. The plain tracker runs
+   no hand kernel (it detects no objects): the kernel counts are reset
+   before it and read after it, and must stay 0.
 7. tracker card vs CPU: the 14-frame 320x240 tracker sequence of
    tests/test_torch_tracker.py on the card and on the CPU, both with the
    local-BA fold forced synchronous; the same frames tracked, the same
@@ -41,6 +42,22 @@ Phases (any failure exits non-zero before a result is printed):
    rotations within TRACKER_ROT_TOL, camera centres within
    TRACKER_CENTRE_TOL (RMS) after a Sim3 alignment. The card runs twice,
    and whether the two runs are bit-identical is printed.
+8. the object tracker at full width: ObjectSlamTracker.track(gray, boxes,
+   lines) over the same 58-frame 640x480 orbit at the same preset, with
+   ground_Twc0 the first truth pose, the truth box as the 2D box and the
+   port's LSD lines; the kernel count is reset just before it. Prints the
+   tracker's outcome, each landmark against the true box, the scaled ATE,
+   frames/s and ms per tracked / keyframe frame, the profiler's object
+   spans, the EDT launches against the detector calls, and the device
+   events of one object BA under torch.profiler.
+9. object tracker card vs CPU: the 24-frame 320x240 object gate of
+   tests/test_torch_object_tracker.py (the port's LSD lines), the fold
+   forced synchronous. The CPU initializes it (frames 0-9); copies of that
+   tracker run the rest on the card twice and on the CPU (which must repeat
+   the original bit for bit): the same frames tracked, keyframes on the
+   same frames, landmarks, scale flag, poses within phase 7's bounds, the
+   landmark within OBJECT_LANDMARK_*_TOL; whether the card runs are
+   bit-identical is printed.
 
 The second-to-last line is a JSON object of the kernels and their numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -73,6 +90,17 @@ TRACKER_ATE_MAX = 0.6      # m: phase 6 read 0.2811 on its first card run (JAX: 
 # <= 5.8e-4.
 TRACKER_ROT_TOL = 1e-2
 TRACKER_CENTRE_TOL = 5e-3
+# phase 9: the object gate initializes at frame 9; its landmark's centre (m)
+# and half-scale (m) card vs CPU. The landmark's object BA is rank deficient
+# on this sequence (no box edge: the box touches the image border; the JAX
+# package drives the scale to its 0.01 floor), so float rounding moves it
+# far: card vs CPU 0.42-0.72 m and 0.20-0.22 m (three calls), JAX vs the
+# port on the CPU 0.6 m. The bounds only say it is the same object: the
+# box's distance to the camera (~3 m) halved, and its largest true half
+# extent
+OBJECT_GATE_INIT = 9
+OBJECT_LANDMARK_CENTRE_TOL = 1.5
+OBJECT_LANDMARK_SCALE_TOL = 0.6
 
 
 def log(*a):
@@ -484,7 +512,7 @@ def phase6_tracker(dev, seq):
     assert init is not None, "the tracker never initialized"
     assert len(tracked) >= TRACKER_MIN_TRACKED * N, f"tracked only {len(tracked)}/{N}"
     assert np.isfinite(ate) and ate < TRACKER_ATE_MAX, f"scaled ATE {ate}"
-    assert launches == 0
+    assert launches == 0  # the plain tracker detects no objects: no EDT
 
 
 def phase7_tracker_card_vs_cpu(dev):
@@ -526,6 +554,280 @@ def phase7_tracker_card_vs_cpu(dev):
         f"{raw:.3g}; two card runs bit-identical: {repeat}")
 
 
+def _object_frames(seq, dev):
+    """Per frame: the gray image, the truth box rows (or None) and the
+    port's LSD lines (min_length 15, max_lines 128) on `dev`."""
+    from cube_slam_tpu_torch.ops import lsd
+
+    out = []
+    for f in range(seq.num_frames):
+        g = seq.gray(f)
+        lines, valid = lsd.detect_lines(torch.as_tensor(g, device=dev), min_length=15.0, max_lines=128)
+        boxes = seq.yolo_boxes(f)
+        out.append((g, boxes[:, :4] if len(boxes) else None, lines.cpu().numpy()[valid.cpu().numpy()]))
+    return out
+
+
+def _landmarks(trk, scene):
+    """Each live landmark: (slot, centre, scale, min_log_error norm against
+    the true box in the ground frame, centre error in m)."""
+    from cube_slam_tpu_torch.models import cuboid as cb
+
+    box_T, box_half = scene.box_pose_scale()
+    truth = cb.Cuboid(torch.tensor(box_T, dtype=torch.float32), torch.tensor(box_half, dtype=torch.float32))
+    st = trk.objects.store
+    rows = []
+    for o in np.where(st.valid)[0]:
+        err = cb.min_log_error(cb.Cuboid(torch.tensor(st.pose[o]), torch.tensor(st.scale[o])), truth)
+        rows.append((int(o), st.pose[o][:3, 3].copy(), st.scale[o].copy(), float(torch.linalg.vector_norm(err)),
+                     float(np.linalg.norm(st.pose[o][:3, 3] - box_T[:3, 3]))))
+    return rows
+
+
+def _object_ba_profile(args, kwargs):
+    """One object BA (local_ba_objects_two_stage) on the card: its time
+    (CUDA events, median of 3 after 1 warm-up) and, under torch.profiler,
+    its device events, their busy time and the top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cube_slam_tpu_torch.graph import object_ba
+
+    ms = cuda_ms(lambda: object_ba.local_ba_objects_two_stage(*args, **kwargs), warmup=1, reps=3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        object_ba.local_ba_objects_two_stage(*args, **kwargs)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in ev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return ms, len(ev), sum(by_name.values()) / 1e3, top
+
+
+def phase8_object_tracker(dev, seq):
+    from cube_slam_tpu_torch.graph import object_ba
+    from cube_slam_tpu_torch.ops import hopper_kernels as hk
+    from cube_slam_tpu_torch.slam.system import ObjectSlamTracker, TrackerConfig
+    from cube_slam_tpu_torch.utils import profiler
+
+    N = seq.num_frames
+    t0 = time.perf_counter()
+    inputs = _object_frames(seq, dev)
+    lines_ms = 1e3 * (time.perf_counter() - t0) / N
+    truth = [seq.truth_Twc(f) for f in range(N)]
+    cfg = TrackerConfig(n_features=1500, n_levels=8, enable_loop_closing=False)
+    trk = ObjectSlamTracker(seq.K, seq.wh, cfg, ground_Twc0=seq.truth_Twc(0), device=dev)
+    det = trk.objects.detector
+    calls = [0]
+    detect = det.detect_cuboid
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return detect(*a, **k)
+
+    det.detect_cuboid = counted
+    last_ba = {}
+    solve = object_ba.local_ba_objects_two_stage
+
+    def kept(*a, **k):
+        last_ba.update(args=a, kwargs=k)
+        return solve(*a, **k)
+
+    object_ba.local_ba_objects_two_stage = kept
+    profiler.reset()
+    profiler.enable()
+    ms, kind, promoted = [], [], set()
+    try:
+        torch.cuda.synchronize()
+        hk.edt_launches = 0
+        t_all = time.perf_counter()
+        for f, (g, boxes, lines) in enumerate(inputs):
+            was = trk.state
+            t0 = time.perf_counter()
+            out = trk.track(g, bboxes_2d=boxes, lines=lines)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            kind.append("lost" if out is None else "init" if was == "NOT_INITIALIZED"
+                        else "kf" if trk.last_kf_frame_id == f else "tracked")
+            st = trk.objects.store
+            promoted |= {(int(o), int(st.gen[o])) for o in np.where(st.valid)[0]}
+        traj = trk.final_trajectory()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_all
+        launches = hk.edt_launches
+    finally:
+        object_ba.local_ba_objects_two_stage = solve
+        profiler.disable()
+    spans = profiler.aggregated()
+    profiler.reset()
+
+    tracked = [fid for fid, T in traj if T is not None]
+    ate = _scaled_ate(traj, truth)
+    ate_tracked = _scaled_ate(trk.trajectory, truth)
+    init = kind.index("init") if "init" in kind else None
+    lms = _landmarks(trk, seq.scene)
+    med = lambda k: statistics.median([t for t, c in zip(ms, kind) if c == k]) if k in kind else float("nan")  # noqa: E731
+    mean = lambda k: statistics.mean([t for t, c in zip(ms, kind) if c == k]) if k in kind else float("nan")  # noqa: E731
+    log(f"[objects] {N} frames {seq.wh[0]}x{seq.wh[1]}, 1500 features x 8 levels, truth box, port LSD lines "
+        f"({lines_ms:.2f} ms/frame, outside the clock): initialized at frame {init}; tracked {len(tracked)}/{N}; "
+        f"keyframes {int(trk.map.kf_valid.sum())}; map points {int(trk.map.mp_valid.sum())}; landmarks "
+        f"{len(lms)} alive, {len(promoted)} promoted; mono_scale_initialized {trk.mono_scale_initialized}; "
+        f"scaled ATE {ate:.4f} m (final trajectory), {ate_tracked:.4f} m (as tracked)")
+    box_T, box_half = seq.scene.box_pose_scale()
+    for o, c, sc, err, cerr in lms:
+        log(f"[objects] landmark {o}: centre {np.round(c, 4).tolist()} (true {np.round(box_T[:3, 3], 4).tolist()}, "
+            f"{cerr:.4f} m off), half-scale {np.round(sc, 4).tolist()} (true {np.round(box_half, 4).tolist()}); "
+            f"min_log_error norm {err:.4f} (ground frame)")
+    log(f"[objects] {N / wall:.3f} frames/s of track() ({wall:.2f} s, host clock, synchronized per frame); "
+        f"tracked non-keyframe frames: median {med('tracked'):.2f} ms, mean {mean('tracked'):.2f} ms "
+        f"({kind.count('tracked')}); keyframe frames: median {med('kf'):.2f} ms, mean {mean('kf'):.2f} ms "
+        f"({kind.count('kf')}); initialization frame {med('init'):.2f} ms; untracked frames {kind.count('lost')}")
+    split = {name: spans.get(name, (0.0, 0, 0, 0, 0)) for name in
+             ("obj.detect", "obj.associate", "obj.ba", "kf.total", "kf.ba_dispatch", "ba.fold",
+              "track.dispatch", "track.result_read")}
+    log("[objects] split (total ms / calls): " + "; ".join(f"{k} {v[0]:.1f}/{v[4]}" for k, v in split.items())
+        + " — obj.* run after kf.total's plain keyframe step")
+    log(f"[objects] EDT launches on the object tracker path: {launches} for {calls[0]} detector calls "
+        f"(one per keyframe with a box, plus the scale initialization)")
+    if last_ba:
+        ba_ms, n_ev, busy, top = _object_ba_profile(last_ba["args"], last_ba["kwargs"])
+        Kf, P, O = (last_ba["args"][i].shape[0] for i in range(3))
+        log(f"[objects] the last object BA again (Kf {Kf}, P {P}, O {O}, 5 + 10 LM steps): {ba_ms:.1f} ms "
+            f"(median of 3, CUDA events); under torch.profiler {n_ev} device events, {busy:.1f} ms of device "
+            f"time; top: " + "; ".join(f"{name[:50]} {us / 1e3:.1f} ms" for name, us in top))
+
+    assert init is not None, "the object tracker never initialized"
+    assert len(tracked) >= TRACKER_MIN_TRACKED * N, f"tracked only {len(tracked)}/{N}"
+    assert np.isfinite(ate), f"scaled ATE {ate}"
+    assert launches > 0 and launches == calls[0], f"{launches} EDT launches for {calls[0]} detector calls"
+    # the JAX package promotes one landmark on this sequence (PERF.md §5)
+    assert promoted, "no landmark promoted"
+    return launches
+
+
+def _object_gate():
+    """The 24-frame object gate of tests/test_torch_object_tracker.py with the
+    port's LSD lines (computed once on the CPU): (frames, boxes, lines, truth
+    Twc, scene, K)."""
+    from cube_slam_tpu_torch.ops import lsd
+    from cube_slam_tpu_torch.utils import synth
+
+    K = np.array([[320.0, 0, 160], [0, 320.0, 120], [0, 0, 1]], dtype=np.float32)
+    scene = synth.RoomScene(seed=3, box_center=[0.0, 3.2, 0.45], box_half=[0.6, 0.4, 0.45])
+    poses = synth.camera_path(40, kind="orbit", target=[0.0, 3.2, 0.6])[:24]
+    frames, boxes, lines = [], [], []
+    for P in poses:
+        g = np.clip(scene.render(P, K, wh=(320, 240)), 0, 255).astype(np.uint8)
+        ln, lv = lsd.detect_lines(torch.as_tensor(g, dtype=torch.float32), min_length=15.0, max_lines=128)
+        bb = scene.box_bbox_2d(P, K, wh=(320, 240))
+        frames.append(g)
+        boxes.append(None if bb is None else bb[None, :])
+        lines.append(ln.numpy()[lv.numpy()])
+    return frames, boxes, lines, poses, scene, K
+
+
+def _carry(src, cls, device):
+    """A copy of the ObjectSlamTracker `src` (the class `cls`) on `device`:
+    its host map and object manager, pose state, trajectories, keyframe
+    database, last frame and counters. The copy re-seeds its device state
+    from the host at its next frame, as `src` does after initialization."""
+    import copy
+
+    from cube_slam_tpu_torch.slam import state as st
+
+    t = cls(src.K, src.img_wh, copy.deepcopy(src.cfg), ground_Twc0=src.ground_align,
+            camera_object_weight=src.camera_object_weight, device=device)
+    t.map = st.map_state_from_arrays(vars(src.map))
+    for name in ("state", "last_Tcw", "velocity", "frame_id", "last_kf_frame_id", "ref_kf", "tracked_inliers",
+                 "_last_rel", "trajectory", "_traj_rel", "loop_detector", "mono_scale_initialized",
+                 "_world_is_ground", "_pending_obs"):
+        setattr(t, name, copy.deepcopy(getattr(src, name)))
+    lf = src.last_frame
+    t.last_frame = st.FrameFeatures(xy=lf.xy.copy(), level=lf.level.copy(), angle=lf.angle.copy(),
+                                    desc=lf.desc.copy(), valid=lf.valid.copy(), mp=lf.mp.copy())
+    if src._vis_acc is not None:
+        t._vis_acc, t._found_acc = src._vis_acc.to(device, copy=True), src._found_acc.to(device, copy=True)
+    t.objects.load_state(vars(src.objects))
+    if src._ground_est is not None:
+        t._ground_est.filtered_height = src._ground_est.filtered_height
+        t._ground_est.kf_counter = src._ground_est.kf_counter
+    return t
+
+
+def phase9_object_card_vs_cpu(dev):
+    from cube_slam_tpu_torch.slam.system import ObjectSlamTracker, TrackerConfig
+    from cube_slam_tpu_torch.slam.tracking import evaluate_ate_scaled
+
+    class AlwaysFold(ObjectSlamTracker):
+        def _apply_pending_map(self, only_if_ready=False):
+            return super()._apply_pending_map(only_if_ready=False)
+
+    frames, boxes, lines, poses, scene, K = _object_gate()
+    cfg = TrackerConfig(n_features=800, n_levels=3, max_kf=24, max_mp=4096, min_init_kps=80, min_init_matches=80,
+                        match_radius_motion=20.0, enable_loop_closing=False)
+
+    def drive(trk, start):
+        last = {}  # each landmark (slot, generation) -> its centre and half-scale on its last frame alive
+        for g, bb, ln in list(zip(frames, boxes, lines))[start:]:
+            trk.track(g, bboxes_2d=bb, lines=ln)
+            st = trk.objects.store
+            last.update({(int(o), int(st.gen[o])): (st.pose[o][:3, 3].copy(), st.scale[o].copy())
+                         for o in np.where(st.valid)[0]})
+        return dict(traj=trk.final_trajectory(),
+                    kf_frames=sorted(int(trk.map.kf_frame_id[k]) for k in trk.map.kf_ids()),
+                    last=[last[key] for key in sorted(last)], lms=_landmarks(trk, scene),
+                    msi=trk.mono_scale_initialized,
+                    store=(trk.objects.store.pose.copy(), trk.objects.store.scale.copy()))
+
+    # the initialization's two-keyframe BA has a free monocular scale that
+    # float rounding moves by tens of percent (the JAX package and the port
+    # on the CPU end 25% apart on this sequence; PERF.md), so the card runs
+    # start from the CPU's initialized tracker: frames 0-9 on the CPU, then
+    # the card twice and the CPU once more from copies of that state
+    cpu = AlwaysFold(K, (320, 240), cfg, ground_Twc0=poses[0], device="cpu")
+    for g, bb, ln in list(zip(frames, boxes, lines))[:OBJECT_GATE_INIT + 1]:
+        cpu.track(g, bboxes_2d=bb, lines=ln)
+    assert cpu.state == "OK", "the object gate did not initialize by frame 9 on the CPU"
+    copies = [_carry(cpu, AlwaysFold, d) for d in (dev, dev, "cpu")]
+    c = drive(cpu, OBJECT_GATE_INIT + 1)
+    g, g2, cc = (drive(t, OBJECT_GATE_INIT + 1) for t in copies)
+    same = all((a is None and b is None) or np.array_equal(a, b) for (_, a), (_, b) in zip(c["traj"], cc["traj"]))
+    assert same and all(np.array_equal(a, b) for a, b in zip(c["store"], cc["store"])), \
+        "a CPU copy of the CPU tracker did not repeat it (the carry is incomplete)"
+    fg = [f for f, T in g["traj"] if T is not None]
+    fc = [f for f, T in c["traj"] if T is not None]
+    assert fg == fc, f"tracked frames differ: card {fg}, CPU {fc}"
+    assert g["kf_frames"] == c["kf_frames"], f"keyframes differ: card {g['kf_frames']}, CPU {c['kf_frames']}"
+    assert (len(g["last"]), len(g["lms"])) == (len(c["last"]), len(c["lms"])), "landmarks differ card vs CPU"
+    assert g["msi"] == c["msi"], "mono_scale_initialized differs card vs CPU"
+    repeat = all((a is None and b is None) or np.array_equal(a, b) for (_, a), (_, b) in zip(g["traj"], g2["traj"]))
+    pairs = [(a, b) for (_, a), (_, b) in zip(g["traj"], c["traj"]) if a is not None]
+    rot = max(float(np.abs(a[:3, :3] - b[:3, :3]).max()) for a, b in pairs)
+    centre = evaluate_ate_scaled(np.stack([np.linalg.inv(a) for a, _ in pairs]),
+                                 np.stack([np.linalg.inv(b) for _, b in pairs]))
+    # every landmark as it was on its last frame alive (a culled one included)
+    lm_centre = max((float(np.linalg.norm(a[0] - b[0])) for a, b in zip(g["last"], c["last"])), default=0.0)
+    lm_scale = max((float(np.abs(a[1] - b[1]).max()) for a, b in zip(g["last"], c["last"])), default=0.0)
+    log(f"[objects-small] 24 frames 320x240, initialized on the CPU (frame {OBJECT_GATE_INIT}), then frames "
+        f"{OBJECT_GATE_INIT + 1}-23 on the card (twice) and on the CPU: tracked {fg[0]}-{fg[-1]} ({len(fg)}) "
+        f"on both; keyframes at frames {g['kf_frames']} on both; landmarks {len(g['lms'])} alive, "
+        f"{len(g['last'])} promoted on both; mono_scale_initialized {g['msi']} on both; rotations within "
+        f"{rot:.3g} (bound {TRACKER_ROT_TOL}), Sim3-aligned centres RMS {centre:.3g} (bound {TRACKER_CENTRE_TOL}); "
+        f"landmarks on their last frame alive: centre {lm_centre:.4g} m apart (bound "
+        f"{OBJECT_LANDMARK_CENTRE_TOL}), half-scale {lm_scale:.4g} m apart (bound {OBJECT_LANDMARK_SCALE_TOL}); "
+        f"two card runs bit-identical: {repeat}; "
+        f"a CPU copy repeats the CPU run bit for bit")
+    for tag, r in (("card", g), ("CPU", c)):
+        for ctr, sc in r["last"]:
+            log(f"[objects-small] {tag} landmark on its last frame alive: centre {np.round(ctr, 4).tolist()}, "
+                f"half-scale {np.round(sc, 4).tolist()}")
+    assert rot <= TRACKER_ROT_TOL, f"rotations differ card vs CPU by {rot}"
+    assert centre <= TRACKER_CENTRE_TOL, f"Sim3-aligned camera centres differ card vs CPU by {centre}"
+    assert lm_centre <= OBJECT_LANDMARK_CENTRE_TOL, f"landmark centres differ card vs CPU by {lm_centre}"
+    assert lm_scale <= OBJECT_LANDMARK_SCALE_TOL, f"landmark scales differ card vs CPU by {lm_scale}"
+
 def main():
     dev = phase0_device()
     phase1_build()
@@ -536,6 +838,8 @@ def main():
     phase5_small_reference(dev)
     phase6_tracker(dev, seq)
     phase7_tracker_card_vs_cpu(dev)
+    launches_objects = phase8_object_tracker(dev, seq)
+    phase9_object_card_vs_cpu(dev)
 
     log(json.dumps({"kernels": [{
         "name": "edt_l2",
@@ -543,6 +847,7 @@ def main():
         "source": "cube_slam_tpu_torch/csrc/edt.cu",
         "replaces": "cube_slam_tpu/ops/pallas_kernels.py:27",
         "launches": launches,
+        "launches_object_tracker": launches_objects,
         "max_abs_err": max_err,
         "ms": edt["ms"],
         "plain_ms": edt["plain_ms"],

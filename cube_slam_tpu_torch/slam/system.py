@@ -1,6 +1,7 @@
 """Monocular SLAM system — the host loop over the per-frame device steps.
 
-PyTorch counterpart of cube_slam_tpu/slam/system.py's MonocularTracker, the
+PyTorch counterpart of cube_slam_tpu/slam/system.py's MonocularTracker and
+ObjectSlamTracker (the tracker with cuboid object landmarks), the
 re-design of System/Tracking/LocalMapping (orb_object_slam/src/System.cc,
 Tracking.cc, LocalMapping.cc) in the reference's `parallel_mapping=false`
 configuration (Tracking.cc:775-780): mapping runs inline after each
@@ -22,8 +23,9 @@ The local BA of a keyframe stays in flight until the next mapping event or
 until the device reports it done (a CUDA event polled at the start of each
 frame); on the CPU, torch runs synchronously and the fold is always ready.
 
-Not in this slice: loop closing (`enable_loop_closing=True`, slice 4 of the
-port) and the software-pipelined dispatch (`pipeline=True`); both raise.
+Not ported yet: loop closing (`enable_loop_closing=True`, with the object
+landmarks' `_on_loop_corrected`) and the software-pipelined dispatch
+(`pipeline=True`); both raise.
 """
 
 from __future__ import annotations
@@ -36,7 +38,8 @@ import numpy as np
 import torch
 
 from ..device import resolve
-from ..graph import ba
+from ..graph import ba, object_ba
+from ..models.detector import CuboidDetector
 from ..ops import matching, orb
 from ..utils import np_geometry as np_geo
 from ..utils import profiler
@@ -44,6 +47,9 @@ from . import initializer as ini
 from . import loop_closing as lc
 from . import pnp
 from . import tracking as trk
+from .ground import GroundConfig, GroundScaleEstimator
+from .kitti import _ray_cuboid_depth
+from .objects import ObjectManager
 from .state import FrameFeatures, MapState
 
 logger = logging.getLogger("cube_slam_tpu_torch")
@@ -1154,6 +1160,17 @@ class MonocularTracker:
         else:
             self._traj_rel.append((fid, -1, -1, np.asarray(Tcw, dtype=np.float64)))
 
+    def _rescale_traj_rel(self, scale):
+        """A map rescale (object-depth anchor / ground-height recovery)
+        changes the length unit of every keyframe translation; the stored
+        frame-to-reference relative poses are in the same unit and follow
+        (the reference rescales mlRelativeFramePoses, Tracking.cc:2644-2651)."""
+        for i, (fid, ref, ref_fid, T_rel) in enumerate(self._traj_rel):
+            if ref >= 0:
+                T = T_rel.copy()
+                T[:3, 3] *= scale
+                self._traj_rel[i] = (fid, ref, ref_fid, T)
+
     # ------------------------------------------------------------------
     def poses(self):
         """List of (frame_id, Tcw or None) for the whole run."""
@@ -1179,3 +1196,380 @@ class MonocularTracker:
                 rec = by_fid.get(fid)
                 out.append((fid, rec if rec is not None else T))
         return out
+
+
+class ObjectSlamTracker(MonocularTracker):
+    """Monocular tracker with cuboid object landmarks — the orb_object_slam
+    configuration (static objects): per new keyframe, run the cuboid
+    detector (Tracking::DetectCuboid; the EDT kernel on the card),
+    associate detections to landmarks by shared-point voting
+    (Tracking::AssociateCuboids), and solve the joint camera-point-object
+    local BA (Optimizer::LocalBACameraPointObjects). Drive it with
+    track(gray, bboxes_2d, lines) per frame, then final_trajectory() and
+    objects.store."""
+
+    # per-keyframe ground-height scale recovery: the reference enables it
+    # only for monocular KITTI (enable_ground_height_scale); on indoor object
+    # scenes the lower image is mostly object faces, whose normal-aligned
+    # pseudo-planes under-report camera height. The ground-based metric init
+    # stays on regardless.
+    enable_ground_height_scale = False
+
+    def __init__(self, K, img_wh, config=None, detector=None, ground_Twc0=None,
+                 camera_object_weight=1.0, device=None):
+        super().__init__(K, img_wh, config, device=device)
+        if detector is None:
+            # sample camera roll/pitch around the SLAM estimate: inside the
+            # loop the pose carries drift (main_obj.cpp:442-446,
+            # whether_sample_cam_roll_pitch +-6 deg step 3)
+            detector = CuboidDetector(whether_sample_cam_roll_pitch=True, device=self.device)
+            detector.set_calibration(K)
+        self.objects = ObjectManager(detector)
+        # SLAM world frame = first camera; detection needs a ground-aligned
+        # frame (z-up, ground at z=0). ground_Twc0 is the first camera's pose
+        # in the ground frame (the reference's InitToGround,
+        # Tracking.cc:110-143).
+        self.ground_align = None
+        if ground_Twc0 is not None:
+            self.ground_align = np.asarray(ground_Twc0, dtype=np.float64)
+        self.camera_object_weight = camera_object_weight
+        self._pending_obs = None  # (gray, bboxes, lines) for the next KF
+        self.mono_scale_initialized = False
+        self._world_is_ground = False
+        # ground-height scale recovery (Tracking.cc:2433-2663): nominal
+        # camera height = the calibrated mount height from ground_Twc0
+        self._ground_est = None
+        if self.ground_align is not None:
+            h0 = float(abs(self.ground_align[2, 3]))
+            if h0 > 1e-3:
+                self._ground_est = GroundScaleEstimator(GroundConfig(
+                    nominal_height=h0, every_kfs=1, min_points=12,
+                    inlier_thresh=0.05 * h0), device=self.device)
+
+    def track(self, gray, bboxes_2d=None, lines=None):
+        """Process one frame with its 2D object boxes (B, >=4) [x y w h] and
+        line segments (M, 4); returns Tcw (4, 4) or None."""
+        self._pending_obs = (gray, bboxes_2d, lines)
+        was_uninit = self.state == "NOT_INITIALIZED"
+        out = super().track(gray)
+        if was_uninit and self.state == "OK":
+            self._anchor_world_to_ground()
+            self._object_depth_scale_init()
+            self._bump_map()
+        return out
+
+    def _anchor_world_to_ground(self):
+        """build_worldframe_on_ground (Tracking.cc:1103-1116): right after
+        two-view initialization transform the initial map into the ground
+        frame (z-up, ground at z=0). Cameras: Tcw' = Tcw @ G^-1; points:
+        p' = G p."""
+        if self.ground_align is None or self._world_is_ground:
+            return
+        G = self.ground_align
+        Ginv = np_geo.inv_T(G)
+        m = self.map
+        R = G[:3, :3]
+        ids = m.mp_ids()
+        m.mp_pos[ids] = (m.mp_pos[ids] @ R.T + G[:3, 3]).astype(np.float32)
+        m.mp_normal[ids] = (m.mp_normal[ids] @ R.T).astype(np.float32)
+        for k in m.kf_ids():
+            m.kf_tcw[k] = (m.kf_tcw[k].astype(np.float64) @ Ginv).astype(np.float32)
+        self.last_Tcw = (self.last_Tcw.astype(np.float64) @ Ginv).astype(np.float32)
+        # velocity is camera-to-camera relative: invariant under a world
+        # re-anchor. As-tracked trajectory entries and absolute (ref == -1)
+        # relative-trajectory entries move with the world.
+        self.trajectory = [
+            (fid, None if T is None else (np.asarray(T, dtype=np.float64) @ Ginv).astype(np.float32))
+            for fid, T in self.trajectory]
+        self._traj_rel = [(fid, ref, ref_fid, (T if ref >= 0 else T @ Ginv))
+                          for fid, ref, ref_fid, T in self._traj_rel]
+        if self._last_rel is not None:
+            ref, ref_fid, T = self._last_rel
+            if ref < 0:
+                self._last_rel = (ref, ref_fid, T @ Ginv)
+        self._world_is_ground = True
+        self._bump_map()
+
+    def reset(self):
+        super().reset()
+        self.objects.reset()
+        self._pending_obs = None
+        self.mono_scale_initialized = False
+        # the re-initialized world starts in the new first camera's frame;
+        # ground_align (the original first camera's mount) no longer
+        # describes it, so a post-reset map stays camera-anchored
+        self._world_is_ground = False
+        self.ground_align = None
+        self._ground_est = None
+
+    def _object_depth_scale_init(self):
+        """MonoObjDepthInitialization analog (Tracking.cc:852-930): anchor
+        the monocular scale to metric truth right after initialization.
+        Preferred anchor: the ground plane of the freshly anchored world
+        (scale = mount height / fitted apparent height). Fallback and cross-
+        check: the cuboid detector's metric object depth against the map's
+        depth (near-biased through the detector's depth)."""
+        m = self.map
+        k = self.ref_kf
+        s_ground = None
+        if self._ground_est is not None and self._world_is_ground:
+            n_cam = m.kf_tcw[k, :3, :3].astype(np.float64) @ np.array([0.0, 0.0, 1.0])
+            h = self._ground_est.measure_height(
+                m, k, self.img_wh, cam_ground_normal=tuple(n_cam),
+                seed=self.frame_id, min_inlier_frac=0.5)
+            if h is not None:
+                s_ground = self._ground_est.cfg.nominal_height / h
+        s_obj = None
+        gray, bboxes_2d, lines = self._pending_obs or (None, None, None)
+        if bboxes_2d is not None and lines is not None and len(bboxes_2d):
+            Twc_slam = np_geo.inv_T(m.kf_tcw[k].astype(np.float64))
+            # after _anchor_world_to_ground the SLAM world is ground-framed
+            Twc_ground = (Twc_slam if self._world_is_ground else
+                          (self.ground_align @ Twc_slam if self.ground_align is not None else Twc_slam))
+            dets = self.objects.detect_on_keyframe(m, k, gray, bboxes_2d, lines, Twc_ground)
+            if dets:
+                ratios = self._object_depth_ratios(k, dets[0])
+                if len(ratios) >= 5:
+                    s_obj = float(np.median(ratios))
+        if s_ground is not None and s_obj is not None:
+            # agree -> trust the exact one; disagree -> the plane fit was
+            # contaminated, fall back to the object
+            scale = s_ground if 0.75 < s_ground / s_obj < 1.35 else s_obj
+        else:
+            scale = s_ground if s_ground is not None else s_obj
+        if scale is None or not (0.05 < scale < 50.0):
+            return
+        self._apply_metric_scale(scale, k)
+        self.mono_scale_initialized = True
+
+    def _apply_metric_scale(self, scale, k):
+        """Global rescale about the oldest keyframe's camera centre: the
+        first camera's pose is the metric truth the ground frame was built
+        from."""
+        m = self.map
+        all_kf = [int(x) for x in m.kf_ids()]
+        anchor = min(all_kf, key=lambda i: int(m.kf_frame_id[i])) if all_kf else k
+        GroundScaleEstimator.apply_scale(m, anchor, scale)
+        self._rescale_traj_rel(scale)
+        self.last_Tcw = m.kf_tcw[k].copy()
+        self.velocity[:3, 3] *= scale
+        self._dev_state = None
+
+    def _rescale_local_window(self, k, scale, covis_min=15):
+        """Local-window rescale (Tracking.cc:2614-2651): only the covisible
+        window of k and its points rescale. Pivot: in a ground-anchored
+        world the window's oldest camera's ground projection (x, y, 0), so
+        the floor stays on z=0; otherwise that camera's centre."""
+        m = self.map
+        counts = m.covisibility_counts(k)
+        window = sorted({int(k)} | {int(i) for i in np.where(counts >= covis_min)[0] if m.kf_valid[i]})
+        anchor = min(window, key=lambda i: int(m.kf_frame_id[i]))
+        c_a = np_geo.inv_T(m.kf_tcw[anchor].astype(np.float64))[:3, 3]
+        pivot = np.array([c_a[0], c_a[1], 0.0]) if self._world_is_ground else c_a
+        mp_set = np.unique(np.concatenate([m.kf_kp_mp[kf][m.kf_kp_mp[kf] >= 0] for kf in window]))
+        mp_set = mp_set[m.mp_valid[mp_set]]
+        if len(mp_set):
+            m.mp_pos[mp_set] = ((m.mp_pos[mp_set].astype(np.float64) - pivot) * scale
+                                + pivot).astype(np.float32)
+            m.mp_min_dist[mp_set] *= scale
+            m.mp_max_dist[mp_set] *= scale
+        for kf in window:
+            Twc = np_geo.inv_T(m.kf_tcw[kf].astype(np.float64))
+            Twc[:3, 3] = (Twc[:3, 3] - pivot) * scale + pivot
+            m.kf_tcw[kf] = np_geo.inv_T(Twc).astype(np.float32)
+        Twc = np_geo.inv_T(self.last_Tcw.astype(np.float64))
+        Twc[:3, 3] = (Twc[:3, 3] - pivot) * scale + pivot
+        self.last_Tcw = np_geo.inv_T(Twc).astype(np.float32)
+        self.velocity[:3, 3] *= scale
+        # frame->reference relative poses whose reference is in the window
+        # carry window units (Tracking.cc:2643-2651)
+        win = set(window)
+        for i, (fid, ref, ref_fid, T) in enumerate(self._traj_rel):
+            if ref in win:
+                T2 = T.copy()
+                T2[:3, 3] *= scale
+                self._traj_rel[i] = (fid, ref, ref_fid, T2)
+        if self._last_rel is not None and self._last_rel[0] in win:
+            ref, ref_fid, T = self._last_rel
+            T2 = T.copy()
+            T2[:3, 3] *= scale
+            self._last_rel = (ref, ref_fid, T2)
+        self._bump_map()
+
+    def _object_depth_ratios(self, k, det, min_points=5):
+        """Per-point metric/estimated depth ratios for one detection: metric
+        depth = the keypoint ray's first hit on the detected cuboid (the
+        visible surface the point sits on); estimated depth = the owned map
+        point's camera-frame z."""
+        m = self.map
+        mp = m.kf_kp_mp[k]
+        if len(det.owned_kps) == 0:
+            return []
+        inside = np.zeros(len(mp), dtype=bool)
+        inside[det.owned_kps] = True
+        sel = np.where((mp >= 0) & inside)[0]
+        ids = mp[sel]
+        live = m.mp_valid[ids]
+        sel, ids = sel[live], ids[live]
+        if len(ids) < min_points:
+            return []
+        d_metric = _ray_cuboid_depth(self.K, m.kf_kp_xy[k, sel], det.local_pose, det.scale)
+        Tcw = m.kf_tcw[k]
+        z_est = (m.mp_pos[ids] @ Tcw[:3, :3].T + Tcw[:3, 3])[:, 2]
+        ok = (d_metric > 0) & (z_est > 1e-6)
+        return (d_metric[ok] / z_est[ok]).tolist()
+
+    def _ground_height_reanchor(self, k):
+        """Ground-height scale recovery (enable_ground_height_scale,
+        Tracking.cc:2433-2663): fit the floor plane to lower-image map
+        points and rescale the local window so the camera's height above it
+        equals the nominal mount height |ground_Twc0 z|."""
+        if not self.enable_ground_height_scale or self._ground_est is None or not self._world_is_ground:
+            return
+        m = self.map
+        n_cam = m.kf_tcw[k, :3, :3].astype(np.float64) @ np.array([0.0, 0.0, 1.0])
+        # once the world is metric only near-floor points may vote
+        z_gate = 0.25 * self._ground_est.cfg.nominal_height if self.mono_scale_initialized else None
+        s = self._ground_est.try_recover(m, k, self.img_wh, cam_ground_normal=tuple(n_cam),
+                                         seed=self.frame_id, max_world_z=z_gate)
+        if s is None or not (0.5 < s < 2.0):
+            return
+        s = min(max(s, 0.7), 1.3)
+        if abs(s - 1.0) < 0.02:
+            return
+        self._rescale_local_window(k, s)
+        logger.info("ground-height scale recovery at KF %d: x%.3f", k, s)
+
+    def _create_keyframe(self, feats, fid=None):
+        super()._create_keyframe(feats, fid=fid)
+        # the object pipeline reads and writes camera/point state (object BA,
+        # scale init): fold the in-flight point BA first
+        self._apply_pending_map()
+        self._keyframe_objects(self.ref_kf)
+
+    def _keyframe_objects(self, k):
+        """The object part of a keyframe step: detect on keyframe k, associate
+        and cull, (optionally) re-anchor the ground height, object BA."""
+        gray, bboxes_2d, lines = self._pending_obs or (None, None, None)
+        if bboxes_2d is None or lines is None or len(bboxes_2d) == 0:
+            return
+        Twc_slam = np_geo.inv_T(self.map.kf_tcw[k].astype(np.float64))
+        if self._world_is_ground or self.ground_align is None:
+            Twc_ground = Twc_slam  # world anchored on the ground at init
+        else:
+            Twc_ground = self.ground_align @ Twc_slam  # via the first camera
+        with profiler.span("obj.detect"):
+            dets = self.objects.detect_on_keyframe(self.map, k, gray, bboxes_2d, lines, Twc_ground)
+        with profiler.span("obj.associate"):
+            self.objects.associate(self.map, k, dets)
+            self.objects.cull(self.map)
+        self._ground_height_reanchor(k)
+        with profiler.span("obj.ba"):
+            self._object_ba(k)
+
+    def _object_ba(self, k):
+        """Joint local BA with objects over k's covisible window: the
+        reference's pre-pass (owned-point filter + re-centre,
+        Optimizer.cc:1180-1224), then its two-stage 5 -> prune -> 10
+        schedule (:1389-1444). The problem has its own size: every
+        observation of the window's points by the window's keyframes and
+        every valid edge of the object families (the JAX package pads all
+        of them to pow2 capacities, inertly); the object store keeps its
+        slots."""
+        m = self.map
+        st = self.objects.store
+        if not st.valid.any():
+            return
+        self.objects.filter_and_recenter(m)
+        counts = m.covisibility_counts(k)
+        order = np.argsort(-counts)
+        local = [k] + [int(i) for i in order[: self.cfg.local_ba_kfs - 1] if counts[i] >= 15]
+        kf_map = {int(kf): i for i, kf in enumerate(local)}
+        mp_set = np.unique(np.concatenate([m.kf_kp_mp[kf][m.kf_kp_mp[kf] >= 0] for kf in local]))
+        mp_set = mp_set[m.mp_valid[mp_set]]
+        if len(mp_set) == 0:
+            return
+
+        kf_idx, kp_idx, mp_idx = m.observations_of(mp_set)
+        keep = np.isin(kf_idx, local)
+        kf_idx, kp_idx, mp_idx = kf_idx[keep], kp_idx[keep], mp_idx[keep]
+        kf_local = np.full(m.max_kf, -1, dtype=np.int32)
+        kf_local[np.asarray(local)] = np.arange(len(local), dtype=np.int32)
+        mp_local = np.full(m.max_mp, -1, dtype=np.int32)
+        mp_local[mp_set] = np.arange(len(mp_set), dtype=np.int32)
+        obs_kf = kf_local[kf_idx]
+        obs_pt = mp_local[mp_idx]
+        obs_uv = m.kf_kp_xy[kf_idx, kp_idx]
+        obs_si = (1.0 / (trk.SCALE_FACTOR ** m.kf_kp_level[kf_idx, kp_idx])).astype(np.float32)
+
+        (box_kf, box_obj, box_meas, box_si, box_valid,
+         po_obj, po_pt_g, po_si, po_valid,
+         meas_kf, meas_obj, meas_pose, meas_scale, meas_si,
+         meas_valid) = self.objects.ba_edges(m, kf_map, camera_object_weight=self.camera_object_weight)
+        # point-object edges into local point indices; keep the valid edges
+        # of each family only
+        po_loc = mp_local[np.clip(po_pt_g, 0, None)]
+        po = np.where(po_valid & (po_loc >= 0))[0]
+        box = np.where(box_valid)[0]
+        meas = np.where(meas_valid)[0]
+
+        nk = len(local)
+        kf_tcw = m.kf_tcw[local].copy()
+        # oldest by frame id (slot recycling breaks slot == temporal order)
+        all_kf = [int(x) for x in m.kf_ids()]
+        oldest = min(all_kf, key=lambda i: int(m.kf_frame_id[i])) if all_kf else 0
+        kf_fixed = np.array([kf == oldest for kf in local], dtype=bool)
+        if not kf_fixed.any():
+            kf_fixed[int(np.argmin(m.kf_frame_id[local]))] = True
+        # mono scale gauge (see _local_ba_dispatch): the solve stays free with
+        # one fixed camera, then the cost-flat similarity direction is
+        # renormalized post hoc, keeping the fixed -> widest-baseline camera
+        # distance
+        gauge = None
+        if nk >= 3 and int(kf_fixed.sum()) == 1:
+            i_fix = int(np.where(kf_fixed)[0][0])
+            c_fix = np_geo.inv_T(kf_tcw[i_fix].astype(np.float64))[:3, 3]
+            centers = np.stack([np_geo.inv_T(kf_tcw[i].astype(np.float64))[:3, 3] for i in range(nk)])
+            dctr = np.linalg.norm(centers - c_fix, axis=1)
+            dctr[i_fix] = -1.0
+            i_ref = int(np.argmax(dctr))
+            if dctr[i_ref] > 1e-6:
+                gauge = (i_fix, i_ref, float(dctr[i_ref]))
+
+        t = self._t
+        E = len(obs_kf)
+        out = object_ba.local_ba_objects_two_stage(
+            t(kf_tcw), t(m.mp_pos[mp_set]), t(st.pose), t(st.scale), self._K_dev,
+            t(obs_kf), t(obs_pt), t(obs_uv), t(obs_si), torch.ones(E, dtype=torch.bool, device=self.device),
+            t(box_kf[box]), t(box_obj[box]), t(box_meas[box]), t(box_si[box]), t(box_valid[box]),
+            t(po_obj[po]), t(po_loc[po]), t(po_si[po]), t(po_valid[po]),
+            t(kf_fixed), torch.ones(len(mp_set), dtype=torch.bool, device=self.device),
+            t(st.valid), t(st.fix_scale),
+            meas_kf=t(meas_kf[meas]), meas_obj=t(meas_obj[meas]), meas_pose=t(meas_pose[meas]),
+            meas_scale=t(meas_scale[meas]), meas_si=t(meas_si[meas]), meas_valid=t(meas_valid[meas]),
+        )
+        kf_out, pts_out, op_out, os_out = (x.cpu().numpy() for x in out[:4])
+        if gauge is not None:
+            i_fix, i_ref, d_before = gauge
+            c_fix = np_geo.inv_T(kf_out[i_fix].astype(np.float64))[:3, 3]
+            c_ref = np_geo.inv_T(kf_out[i_ref].astype(np.float64))[:3, 3]
+            d_after = float(np.linalg.norm(c_ref - c_fix))
+            if d_after > 1e-9 and abs(d_before / d_after - 1.0) > 1e-6:
+                s = d_before / d_after
+                for i in range(nk):
+                    Twc = np_geo.inv_T(kf_out[i].astype(np.float64))
+                    Twc[:3, 3] = (Twc[:3, 3] - c_fix) * s + c_fix
+                    kf_out[i] = np_geo.inv_T(Twc).astype(kf_out.dtype)
+                pts_out = ((pts_out.astype(np.float64) - c_fix) * s + c_fix).astype(pts_out.dtype)
+                # object landmarks ride the same similarity (position about
+                # the pivot, dimensions by s)
+                live_o = np.where(st.valid)[0]
+                op_out[live_o, :3, 3] = ((op_out[live_o, :3, 3].astype(np.float64) - c_fix) * s
+                                         + c_fix).astype(op_out.dtype)
+                os_out[live_o] = (os_out[live_o].astype(np.float64) * s).astype(os_out.dtype)
+        for i, kf in enumerate(local):
+            if not kf_fixed[i]:
+                m.kf_tcw[kf] = kf_out[i]
+        m.mp_pos[mp_set] = pts_out
+        st.pose[:] = op_out
+        st.scale[:] = os_out

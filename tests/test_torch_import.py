@@ -25,12 +25,13 @@ def _modules():
 
 SLICE2 = ["ops.orb", "ops.matching", "utils.profiler", "utils.metrics", "slam.state", "graph.ba",
           "slam.initializer", "slam.pnp", "slam.tracking", "slam.loop_closing", "slam.system"]
+SLICE3 = ["ops.ransac", "slam.ground", "slam.kitti", "slam.objects", "graph.object_ba"]
 
 
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "cube_slam_tpu_torch.models.detector" in mods and len(mods) >= 26
-    assert not {"cube_slam_tpu_torch." + m for m in SLICE2} - set(mods)
+    assert not {"cube_slam_tpu_torch." + m for m in SLICE2 + SLICE3} - set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -72,12 +73,14 @@ def _entry_point(name):
     """Each entry point built with no device argument."""
     from cube_slam_tpu_torch.models.detector import CuboidDetector
     from cube_slam_tpu_torch.slam.object_slam import ObjectSlamDemo, optimize_graph
-    from cube_slam_tpu_torch.slam.system import MonocularTracker, TrackerConfig
+    from cube_slam_tpu_torch.slam.system import MonocularTracker, ObjectSlamTracker, TrackerConfig
 
     if name == "ObjectSlamDemo":
         return ObjectSlamDemo(max_frames=8)
     if name == "MonocularTracker":
         return MonocularTracker(np.eye(3), (320, 240), TrackerConfig(enable_loop_closing=False))
+    if name == "ObjectSlamTracker":
+        return ObjectSlamTracker(np.eye(3), (320, 240), TrackerConfig(enable_loop_closing=False))
     if name == "CuboidDetector":
         return CuboidDetector()
     if name == "CuboidDetector.from_config":
@@ -88,7 +91,7 @@ def _entry_point(name):
                           np.ones(F, np.float32), np.ones(F, bool), eye, F, num_iters=1, max_frames=F)
 
 
-@pytest.mark.parametrize("name", ["ObjectSlamDemo", "MonocularTracker", "CuboidDetector",
+@pytest.mark.parametrize("name", ["ObjectSlamDemo", "MonocularTracker", "ObjectSlamTracker", "CuboidDetector",
                                   "CuboidDetector.from_config", "optimize_graph"])
 def test_entry_points_default_to_the_card(name):
     """Without a device the entry points run on the card: where there is

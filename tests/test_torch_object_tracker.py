@@ -1,0 +1,315 @@
+"""The object slice's gate: ObjectSlamTracker of the JAX package (its
+local-BA fold forced synchronous) and of the port on the CPU, driven as a
+user drives them, track(gray, boxes, lines) frame by frame over the 24-frame
+object gate (tests/torch_parity_utils.py), then the trajectory and the
+object store. Also the object part of single keyframe steps, from a JAX
+tracker carried into the port just before it.
+
+What the JAX run does here (measured on the CPU): initialized at frame 9,
+frames 9-23 tracked, keyframes at frames 6, 9, 11, 14, 19; one landmark
+promoted at frame 14, whose object BA drives its scale to the 0.01 floor at
+frame 19; mono_scale_initialized.
+
+Two places of the reference are ill-conditioned, so the port is held to
+the outcomes and to the solver's optimum there, not to bits:
+- the initialization's local BA has two keyframes, one fixed, and a free
+  monocular scale: on the same input the JAX package and the port end 25%
+  apart along that direction (x of the second camera: -0.0327 vs -0.0255),
+  the metric anchor then differs by ~10%, and the later keyframes fall on
+  other frames (port: 6, 9, 12, 16, 23);
+- the object BA of this sequence has no box or measurement edge (the box
+  touches the image border), so the landmark's 9x9 block is rank deficient
+  (truncated hinges) and LM at lambda ~5e-5 turns float rounding into
+  metre-scale steps: the JAX package's own landmark moves 1.2 m when its
+  padded inputs are unpadded. Both packages reach the same cost.
+"""
+
+import copy
+
+import numpy as np
+import pytest
+from torch_parity_utils import (GATE_A_K, OBJECT_GATE_CONFIG, carry_object_tracker, object_gate_sequence,
+                                sync_fold_jax_object_tracker)
+
+from cube_slam_tpu_torch.slam import system as tsys
+from cube_slam_tpu_torch.slam.tracking import evaluate_ate_scaled
+
+CARRY_AFTER = 9  # the JAX tracker is carried into the port after this frame (its initialization)
+
+
+def _store(trk):
+    st = trk.objects.store
+    return dict(valid=st.valid.copy(), pose=st.pose.copy(), scale=st.scale.copy(), n_obs=st.n_obs.copy(),
+                gen=st.gen.copy(), best_obj=trk.map.mp_best_obj.copy(),
+                rings={o: [(d.kf_id, d.landmark) for d in dq] for o, dq in trk.objects.meas.items()},
+                pending=[(d.kf_id, d.landmark) for d in trk.objects.detections])
+
+
+def _capture_ba(module, sink):
+    """Wrap module.local_ba_objects_two_stage to append (edge counts, final
+    cost) of each call to sink; returns the restore function."""
+    solve = module.local_ba_objects_two_stage
+
+    def kept(*a, **k):
+        out = solve(*a, **k)
+        sink.append(dict(n_obs=int(np.asarray(a[9]).sum()), n_box=int(np.asarray(a[14]).sum()),
+                         n_po=int(np.asarray(a[18]).sum()), n_meas=int(np.asarray(k["meas_valid"]).sum()),
+                         cost=float(np.asarray(out[4]))))
+        return out
+
+    module.local_ba_objects_two_stage = kept
+    return lambda: setattr(module, "local_ba_objects_two_stage", solve)
+
+
+def _drive(trk, frames, boxes, lines, start=0):
+    """track() from frame `start` on; per frame the live landmarks' scales
+    (slot, generation) -> scale after the frame."""
+    life = {}
+    for f in range(start, len(frames)):
+        trk.track(frames[f], bboxes_2d=boxes[f], lines=lines[f])
+        st = trk.objects.store
+        for o in np.where(st.valid)[0]:
+            life[(int(o), int(st.gen[o]))] = st.scale[o].copy()
+    return life
+
+
+def _outcome(trk, poses, life):
+    tracked = [f for f, T in trk.trajectory if T is not None]
+    est = np.stack([np.linalg.inv(T) for _, T in trk.trajectory if T is not None])
+    fin = np.stack([np.linalg.inv(T) for _, T in trk.final_trajectory() if T is not None])
+    tru = np.stack([poses[f] for f in tracked])
+    m = trk.map
+    return dict(tracked=tracked, kf_frames=sorted(int(m.kf_frame_id[k]) for k in m.kf_ids()),
+                n_mp=int(m.mp_valid.sum()), promoted=len(life), last_scale=list(life.values()),
+                alive=int(trk.objects.store.valid.sum()), msi=trk.mono_scale_initialized,
+                ate=evaluate_ate_scaled(est, tru), ate_final=evaluate_ate_scaled(fin, tru), store=_store(trk))
+
+
+@pytest.fixture(scope="module")
+def runs():
+    from cube_slam_tpu.graph import object_ba as jba
+    from cube_slam_tpu.slam import system as jsys
+    from cube_slam_tpu_torch.graph import object_ba as tba
+
+    frames, boxes, lines, poses, _ = object_gate_sequence()
+    steps, carried = {}, {}
+
+    class Hooked(jsys.ObjectSlamTracker):
+        """Carries itself into the port after CARRY_AFTER, and at every
+        keyframe just before the object part (after the point-BA fold)."""
+
+        def track(self, gray, bboxes_2d=None, lines=None):
+            out = super().track(gray, bboxes_2d, lines)
+            if self.frame_id == CARRY_AFTER:
+                carried["port"] = carry_object_tracker(self)
+            return out
+
+        def _create_keyframe(self, feats, fid=None):
+            self._capturing = fid
+            super()._create_keyframe(feats, fid=fid)
+            if fid in steps:
+                steps[fid]["jax"] = _store(self)
+            self._capturing = None
+
+    J = sync_fold_jax_object_tracker(poses[0], base=Hooked)
+    detect = J.objects.detect_on_keyframe
+
+    def detect_hook(m, k, *a):
+        fid = getattr(J, "_capturing", None)
+        if fid is not None:
+            steps[fid] = dict(port=carry_object_tracker(J), k=k)
+        dets = detect(m, k, *a)
+        if fid is not None:
+            steps[fid]["jax_dets"] = [copy.deepcopy(vars(d)) for d in dets]
+        return dets
+
+    J.objects.detect_on_keyframe = detect_hook
+    jax_ba = []
+    restore = _capture_ba(jba, jax_ba)
+    try:
+        jlife = _drive(J, frames, boxes, lines)
+    finally:
+        restore()
+
+    cfg = tsys.TrackerConfig(**OBJECT_GATE_CONFIG)
+    P = tsys.ObjectSlamTracker(GATE_A_K, (320, 240), cfg, ground_Twc0=poses[0], device="cpu")
+    plife = _drive(P, frames, boxes, lines)
+    C = carried["port"]
+    clife = _drive(C, frames, boxes, lines, start=CARRY_AFTER + 1)
+    return dict(jax=_outcome(J, poses, jlife), port=_outcome(P, poses, plife),
+                carried=_outcome(C, poses, clife), steps=steps, jax_ba=jax_ba, tba=tba)
+
+
+def _floor(scales):
+    """Every landmark's scale ended at the exp_update floor (the JAX
+    package's collapse on this sequence), below the cull's 0.02."""
+    return bool(scales) and all(float(s.min()) <= 0.02 for s in scales)
+
+
+def test_object_gate_from_scratch(runs):
+    """Both trackers from frame 0: the same tracked frames (9-23), keyframe
+    count, landmarks promoted (1) and scale flag; every landmark collapses
+    to the scale floor in both; scaled ATE within 0.01 m of JAX's, as
+    tracked and recomposed (JAX 0.0363 / 0.0047 m, port 0.0383 / 0.0045 m).
+    The landmarks alive at the end may differ: the port's last keyframe
+    falls on frame 23 and culls its wrecked landmark, JAX's last is 19."""
+    j, p = runs["jax"], runs["port"]
+    assert j["tracked"] == list(range(9, 24)), j["tracked"]
+    assert p["tracked"] == j["tracked"]
+    assert len(p["kf_frames"]) == len(j["kf_frames"]) == 5
+    assert p["promoted"] == j["promoted"] == 1
+    assert p["msi"] == j["msi"] is True
+    assert _floor(j["last_scale"]) and _floor(p["last_scale"])
+    assert abs(p["ate"] - j["ate"]) <= 0.01, (p["ate"], j["ate"])
+    assert abs(p["ate_final"] - j["ate_final"]) <= 0.01, (p["ate_final"], j["ate_final"])
+
+
+def test_object_gate_from_the_carried_initialization(runs):
+    """The JAX tracker carried into the port after its initialization
+    (frame 9), then both on their own to frame 23: the same tracked frames,
+    keyframes on the same frames, map points within 2%, the same landmarks
+    (one, alive at the end) at the scale floor within 5e-4, the scale flag,
+    ATE within 0.01 m. The landmark's centre is where the rank-deficient
+    object BA leaves it: measured 0.6 m from JAX's; bound 1.5 m."""
+    j, c = runs["jax"], runs["carried"]
+    assert c["tracked"] == j["tracked"]
+    assert c["kf_frames"] == j["kf_frames"], (c["kf_frames"], j["kf_frames"])
+    assert abs(c["n_mp"] - j["n_mp"]) <= 0.02 * j["n_mp"], (c["n_mp"], j["n_mp"])
+    assert c["alive"] == j["alive"] == 1 and c["msi"] == j["msi"]
+    assert np.array_equal(c["store"]["valid"], j["store"]["valid"])
+    o = int(np.where(j["store"]["valid"])[0][0])
+    assert np.abs(c["store"]["scale"][o] - j["store"]["scale"][o]).max() <= 5e-4
+    assert np.linalg.norm(c["store"]["pose"][o][:3, 3] - j["store"]["pose"][o][:3, 3]) <= 1.5
+    assert abs(c["ate"] - j["ate"]) <= 0.01 and abs(c["ate_final"] - j["ate_final"]) <= 0.01
+
+
+def test_object_keyframe_steps(runs):
+    """At each keyframe of the JAX run after initialization, the JAX tracker
+    carried into the port just before the object part, then the port's
+    part (_keyframe_objects): the same detections (owned keypoints, border
+    flag, box; the cuboid within 1e-3, the detector's vanishing-point
+    tolerance), the same association (store slots, observation counts,
+    point ownership, measurement rings, pending candidates), and an object
+    BA over the same edges that reaches JAX's cost (within 0.1%; measured
+    405.51 vs 405.58 and 516.32 vs 516.42, the port lower)."""
+    steps = runs["steps"]
+    assert sorted(steps) == [11, 14, 19]
+    n_ba = 0
+    for fid, s in sorted(steps.items()):
+        P, k = s["port"], s["k"]
+        port_ba = []
+        restore = _capture_ba(runs["tba"], port_ba)
+        dets = P.objects.detect_on_keyframe
+        seen = []
+
+        def hook(*a, dets=dets, seen=seen):
+            out = dets(*a)
+            seen.extend(copy.deepcopy(vars(d)) for d in out)
+            return out
+
+        P.objects.detect_on_keyframe = hook
+        try:
+            P._keyframe_objects(k)
+        finally:
+            restore()
+        assert len(seen) == len(s["jax_dets"]) == 1, fid
+        for a, b in zip(s["jax_dets"], seen):
+            assert np.array_equal(a["owned_kps"], b["owned_kps"]) and a["at_border"] == b["at_border"]
+            assert np.array_equal(a["bbox"], b["bbox"])
+            np.testing.assert_allclose(b["local_pose"], a["local_pose"], atol=1e-3)
+            np.testing.assert_allclose(b["scale"], a["scale"], atol=1e-3)
+        js, ps = s["jax"], _store(P)
+        for name in ("valid", "n_obs", "gen"):
+            assert np.array_equal(js[name], ps[name]), (fid, name)
+        assert js["rings"] == ps["rings"] and js["pending"] == ps["pending"], fid
+        assert np.array_equal(js["best_obj"], ps["best_obj"]), fid
+        if not ps["valid"].any():
+            assert not port_ba, fid
+            continue
+        n_ba += 1
+        assert len(port_ba) == 1
+        pb = port_ba[0]
+        jb = runs["jax_ba"][n_ba - 1]
+        assert (pb["n_obs"], pb["n_box"], pb["n_po"], pb["n_meas"]) == (jb["n_obs"], jb["n_box"], jb["n_po"],
+                                                                         jb["n_meas"]), (fid, pb, jb)
+        assert np.isfinite(pb["cost"]) and pb["cost"] <= jb["cost"] * 1.001, (fid, pb["cost"], jb["cost"])
+    assert n_ba == len(runs["jax_ba"]) == 2
+
+
+def test_rescales_match_jax():
+    """A ground-anchored world built by hand (a keyframe 1.6 m above a
+    textured floor, tests/test_torch_ransac_ground.py) in both trackers,
+    the mount height 1.8 m: the ground-height re-anchor (switched on, as
+    the KITTI trackers do) rescales the local window by 1.8 / 1.6 about the
+    ground pivot, then the global metric rescale; the same map, motion
+    model and relative trajectory in both packages."""
+    from test_torch_ransac_ground import _ground_map
+
+    from cube_slam_tpu.slam import system as jsys
+    from cube_slam_tpu_torch.slam.state import map_state_from_arrays
+
+    G = np.eye(4)
+    G[2, 3] = 1.8
+    J = jsys.ObjectSlamTracker(GATE_A_K, (320, 240), jsys.TrackerConfig(**OBJECT_GATE_CONFIG), ground_Twc0=G)
+    P = tsys.ObjectSlamTracker(GATE_A_K, (320, 240), tsys.TrackerConfig(**OBJECT_GATE_CONFIG), ground_Twc0=G,
+                               device="cpu")
+    jm = _ground_map(3)
+    for T in (J, P):
+        T.map = jm if T is J else map_state_from_arrays(vars(jm))
+        T._world_is_ground, T.enable_ground_height_scale, T.frame_id = True, True, 5
+        T.last_Tcw = T.map.kf_tcw[0].copy()
+        T.velocity = np.eye(4, dtype=np.float32)
+        T.velocity[:3, 3] = [0.01, 0.0, 0.02]
+        T._traj_rel = [(0, -1, -1, np.eye(4)), (1, 0, 0, np.eye(4) + np.eye(4, k=3) * 0.1),
+                       (2, 1, 10, np.eye(4) + np.eye(4, k=3) * 0.2)]
+        T._last_rel = T._traj_rel[1][1:]
+
+    def same():
+        for name in ("kf_tcw", "mp_pos", "mp_min_dist", "mp_max_dist"):
+            np.testing.assert_allclose(getattr(P.map, name), getattr(J.map, name), atol=2e-6, err_msg=name)
+        np.testing.assert_allclose(P.last_Tcw, J.last_Tcw, atol=2e-6)
+        np.testing.assert_allclose(P.velocity, J.velocity, atol=1e-7)
+        assert [(f, r, rf) for f, r, rf, _ in P._traj_rel] == [(f, r, rf) for f, r, rf, _ in J._traj_rel]
+        for (_, _, _, a), (_, _, _, b) in zip(P._traj_rel, J._traj_rel):
+            np.testing.assert_allclose(a, b, atol=1e-9)
+        np.testing.assert_allclose(P._last_rel[2], J._last_rel[2], atol=1e-9)
+
+    before = P.map.kf_tcw[0].copy()
+    for T in (J, P):
+        T._ground_height_reanchor(0)
+    same()
+    h = abs(float(np.linalg.inv(P.map.kf_tcw[0])[2, 3]))
+    assert not np.array_equal(before, P.map.kf_tcw[0]) and abs(h - 1.6 * 1.8 / P._ground_est.filtered_height) < 1e-4
+    assert abs(P._ground_est.filtered_height - J._ground_est.filtered_height) < 1e-4
+    for T in (J, P):
+        T._apply_metric_scale(0.87, 0)
+    same()
+
+
+@pytest.mark.parametrize("flag", ["pipeline", "enable_loop_closing"])
+def test_object_tracker_unported_modes_raise(flag):
+    cfg = dict(OBJECT_GATE_CONFIG, **{flag: True})
+    with pytest.raises(NotImplementedError):
+        tsys.ObjectSlamTracker(GATE_A_K, (320, 240), tsys.TrackerConfig(**cfg), device="cpu")
+
+
+def test_object_tracker_reset_and_defaults():
+    """The default detector samples roll/pitch on the tracker's device;
+    without ground_Twc0 there is no ground estimator; reset clears the
+    objects and the ground anchoring."""
+    t = tsys.ObjectSlamTracker(GATE_A_K, (320, 240), tsys.TrackerConfig(**OBJECT_GATE_CONFIG), device="cpu")
+    assert t.objects.detector.whether_sample_cam_roll_pitch and t.objects.detector.device.type == "cpu"
+    assert t._ground_est is None and t.ground_align is None
+    g = tsys.ObjectSlamTracker(GATE_A_K, (320, 240), tsys.TrackerConfig(**OBJECT_GATE_CONFIG),
+                               ground_Twc0=np.eye(4), device="cpu")
+    assert g._ground_est is None  # a mount height of 0 m gives no estimator
+    G = np.eye(4)
+    G[2, 3] = 1.6
+    g = tsys.ObjectSlamTracker(GATE_A_K, (320, 240), tsys.TrackerConfig(**OBJECT_GATE_CONFIG), ground_Twc0=G,
+                               device="cpu")
+    assert g._ground_est.cfg.nominal_height == 1.6 and g._ground_est.device.type == "cpu"
+    g.objects.store.valid[0] = True
+    g.mono_scale_initialized = True
+    g.reset()
+    assert not g.objects.store.valid.any() and not g.mono_scale_initialized
+    assert g.ground_align is None and g._ground_est is None and g.state == "NOT_INITIALIZED"

@@ -100,13 +100,83 @@ def carry_tracker(jtrk, device="cpu"):
     last frame with its kp->map-point table, keyframe database and the
     device visibility counters. Any in-flight local BA of the JAX tracker
     must have been folded."""
-    from cube_slam_tpu_torch.slam import loop_closing as tlc
-    from cube_slam_tpu_torch.slam import state as tstate
     from cube_slam_tpu_torch.slam import system as tsys
 
-    assert jtrk._pending_ba is None and jtrk._pending is None
     cfg = tsys.TrackerConfig(**vars(jtrk.cfg))
-    t = tsys.MonocularTracker(jtrk.K, jtrk.img_wh, cfg, device=device)
+    return _carry_base(tsys.MonocularTracker(jtrk.K, jtrk.img_wh, cfg, device=device), jtrk, device)
+
+
+# The object gate: the orbit of the room box at 320x240 (uint8 frames), the
+# truth box as the 2D box and the JAX package's LSD lines, through the
+# ObjectSlamTracker configuration of tests/test_objects_live_e2e.py over 24
+# frames, ground_Twc0 = the first pose
+OBJECT_GATE_CONFIG = dict(n_features=800, n_levels=3, max_kf=24, max_mp=4096, min_init_kps=80,
+                          min_init_matches=80, match_radius_motion=20.0, enable_loop_closing=False)
+
+
+def object_gate_sequence(n=24):
+    """(frames, boxes (1, 4) or None per frame, JAX LSD lines per frame,
+    truth Twc, scene)."""
+    import jax.numpy as jnp
+
+    from cube_slam_tpu.ops import lsd as jlsd
+    from cube_slam_tpu_torch.utils import synth
+
+    scene = room_scene()
+    poses = synth.camera_path(40, kind="orbit", target=[0.0, 3.2, 0.6])[:n]
+    frames, boxes, lines = [], [], []
+    for P in poses:
+        g = np.clip(scene.render(P, GATE_A_K, wh=(320, 240)), 0, 255).astype(np.uint8)
+        ln, lv = jlsd.detect_lines(jnp.asarray(g, dtype=jnp.float32), min_length=15.0, max_lines=128)
+        bb = scene.box_bbox_2d(P, GATE_A_K, wh=(320, 240))
+        frames.append(g)
+        boxes.append(None if bb is None else bb[None, :])
+        lines.append(np.array(ln)[np.array(lv)])
+    return frames, boxes, lines, poses, scene
+
+
+def sync_fold_jax_object_tracker(ground_Twc0, cfg=None, base=None):
+    """The JAX ObjectSlamTracker (or the subclass `base` of it) with its
+    local-BA fold forced synchronous, on the object gate's camera."""
+    from cube_slam_tpu.slam import system as jsys
+
+    base = base or jsys.ObjectSlamTracker
+
+    class SyncFold(base):
+        def _apply_pending_map(self, only_if_ready=False):
+            return super()._apply_pending_map(only_if_ready=False)
+
+    return SyncFold(GATE_A_K, (320, 240), jsys.TrackerConfig(**(cfg or OBJECT_GATE_CONFIG)),
+                    ground_Twc0=ground_Twc0)
+
+
+def carry_object_tracker(jtrk, device="cpu"):
+    """A port ObjectSlamTracker in the state of a JAX one: everything
+    carry_tracker carries, plus the object manager (ObjectManager.load_state),
+    the ground anchoring and its estimator, the scale flag and the pending
+    frame observations."""
+    from cube_slam_tpu_torch.slam import system as tsys
+
+    cfg = tsys.TrackerConfig(**vars(jtrk.cfg))
+    t = tsys.ObjectSlamTracker(jtrk.K, jtrk.img_wh, cfg, ground_Twc0=jtrk.ground_align,
+                               camera_object_weight=jtrk.camera_object_weight, device=device)
+    _carry_base(t, jtrk, device)
+    t.objects.load_state(vars(jtrk.objects))
+    for name in ("ground_align", "mono_scale_initialized", "_world_is_ground", "_pending_obs"):
+        setattr(t, name, _copy(getattr(jtrk, name)))
+    if jtrk._ground_est is None:
+        t._ground_est = None
+    else:
+        t._ground_est.filtered_height = jtrk._ground_est.filtered_height
+        t._ground_est.kf_counter = jtrk._ground_est.kf_counter
+    return t
+
+
+def _carry_base(t, jtrk, device):
+    from cube_slam_tpu_torch.slam import loop_closing as tlc
+    from cube_slam_tpu_torch.slam import state as tstate
+
+    assert jtrk._pending_ba is None and jtrk._pending is None
     t.map = tstate.map_state_from_arrays(vars(jtrk.map))
     for name in ("state", "last_Tcw", "velocity", "frame_id", "last_kf_frame_id", "ref_kf",
                  "tracked_inliers", "_last_rel"):
