@@ -24,7 +24,9 @@ Phases (any failure exits non-zero before a result is printed):
 4. the slice: ObjectSlamDemo.run_online over the 58-frame 640x480 synthetic
    orbit (graph capacity 64 frames, 5 LM iterations per frame), with the
    kernel launch counter reset just before it; prints frames/s, stage ms
-   per frame, ATE and the cuboid's error against the synthetic truth.
+   per frame, ATE and the cuboid's error against the synthetic truth. Then
+   the port's LSD lines of the 58 frames are computed twice on the card and
+   must be bit-identical (the segment sums add in a fixed order).
 5. a small reference: the same online run at 320x240 over 3 frames on the
    card and on the CPU (the plain path) must agree.
 6. the monocular ORB tracker at full width: MonocularTracker.track() over
@@ -58,6 +60,25 @@ Phases (any failure exits non-zero before a result is printed):
    same frames, landmarks, scale flag, poses within phase 7's bounds, the
    landmark within OBJECT_LANDMARK_*_TOL; whether the card runs are
    bit-identical is printed.
+10. loop closing. A: the object tracker with everything on (loop closing,
+   its global BA, loop_min_gap_kfs 6) over the 61-frame there-and-back
+   640x480 orbit of tests/test_full_system.py at the phase-8 preset, truth
+   boxes and the port's LSD lines; the kernel count is reset just before
+   it. Prints the tracker's outcome, each loop closed (keyframe pair, Sim3
+   inliers, scale), the scaled ATE, frames/s, ms per tracked / keyframe
+   frame, the loop.* and obj.* spans, and the EDT launches against the
+   detector calls. B: that test's end-of-loop drift and revisit duplicates
+   injected into A's live map (inject_loop_drift says how and why it
+   departs from the test), then _try_close_loop on the revisit: a loop
+   must close and lower the keyframe ATE, the landmark's drift error and
+   final_trajectory()'s error, and a TUM file of the trajectory must read
+   back the same. C: the constructed 14-keyframe drifted loop
+   (utils/synth.build_drifted_loop) through MonocularTracker._try_close_loop
+   twice on the card and once on the CPU: the same loop edge, the same
+   fused associations and keyframe poses within LOOP_POSE_TOL before the
+   global BA; whether the two card runs are bit-identical is printed.
+
+Each phase prints its seconds.
 
 The second-to-last line is a JSON object of the kernels and their numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -70,6 +91,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -101,6 +123,12 @@ TRACKER_CENTRE_TOL = 5e-3
 OBJECT_GATE_INIT = 9
 OBJECT_LANDMARK_CENTRE_TOL = 1.5
 OBJECT_LANDMARK_SCALE_TOL = 0.6
+# phase 10: the there-and-back orbit of tests/test_full_system.py, and the
+# constructed loop's keyframe poses card vs CPU after correction and fusion,
+# before the global BA (the CPU parity tests hold the port to JAX there
+# within 1e-4)
+LOOP_FRAMES = 61
+LOOP_POSE_TOL = 1e-3
 
 
 def log(*a):
@@ -373,6 +401,20 @@ def phase4_slice(dev, seq):
     log(f"[slice] frames with a detection {int(res.raw_cube_valid.sum())}/{N}; ATE {ate:.4f} m; "
         f"final cuboid centre error {centre_err:.4f} m, max half-scale error {scale_err:.4f} m; "
         f"EDT launches {launches} for {n_det_calls} detector calls")
+
+    # the port's lines repeat bit for bit: two computations of every frame
+    from cube_slam_tpu_torch.ops import lsd
+
+    differ = []
+    for f in range(N):
+        g = torch.as_tensor(seq.gray(f), device=dev)
+        a = lsd.detect_lines(g, min_length=15.0, max_lines=128)
+        b = lsd.detect_lines(g, min_length=15.0, max_lines=128)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            differ.append(f)
+    log(f"[slice] LSD lines of the {N} frames computed twice on the card: bit-identical on "
+        f"{N - len(differ)}/{N} frames" + (f" (differ on {differ})" if differ else ""))
+    assert not differ, f"LSD lines differ between two computations on frames {differ}"
     return launches
 
 
@@ -828,18 +870,429 @@ def phase9_object_card_vs_cpu(dev):
     assert lm_centre <= OBJECT_LANDMARK_CENTRE_TOL, f"landmark centres differ card vs CPU by {lm_centre}"
     assert lm_scale <= OBJECT_LANDMARK_SCALE_TOL, f"landmark scales differ card vs CPU by {lm_scale}"
 
+
+def loop_sequence(n=LOOP_FRAMES, wh=SLICE_WH):
+    """Phase 10A's input: synth_sequence's scene and intrinsics along the
+    there-and-back orbit of tests/test_full_system.py:43-46, whose cosine
+    time warp takes the velocity smoothly through zero at the turnaround."""
+    from cube_slam_tpu_torch.utils import synth
+
+    seq = synth_sequence(n, wh)
+    ss = 0.5 - 0.5 * np.cos(np.linspace(0.0, 2.0 * np.pi, n))
+    seq.poses = synth.camera_path(n, kind="orbit", target=[0.0, 3.2, 0.6], s_values=ss)
+    return seq
+
+
+def loop_config(TrackerConfig):
+    """Phase 10A's tracker configuration (either package's TrackerConfig):
+    the phase-8 preset with loop closing, its global BA, and candidates 6
+    keyframes apart (tests/test_full_system.py)."""
+    return TrackerConfig(n_features=1500, n_levels=8, enable_loop_closing=True, loop_global_ba=True,
+                         loop_min_gap_kfs=6)
+
+
+def inject_loop_drift(trk):
+    """The end-of-loop drift of tests/test_full_system.py:91-163, injected
+    into an object tracker of either package after its run. The revisit is
+    the keyframe sharing the most map points with a partner at least
+    loop_min_gap_kfs database entries before it; later keyframes are
+    dropped and the keyframe rotations projected onto SO(3). From the
+    partner on, rank r carries the warp D^(r - rank(partner)): keyframes,
+    map points by their earliest observing keyframe, the landmark by the
+    keyframe it rides on. Observations across the drift, and every point of
+    the revisit, are re-made as displaced duplicates. (The test's own
+    injection, the last keyframe's early points only, leaves 16 duplicates
+    on these maps, too few to verify, and the revisit covisible with its
+    neighbours, which on this texture's flat signatures puts every
+    candidate under the detector's floor; ROADMAP queue 3 has the rest.)
+    Returns what the checks read."""
+    from cube_slam_tpu_torch.utils import np_geometry as np_geo
+
+    m = trk.map
+    st = trk.objects.store
+    assert st.valid.any(), "no landmark alive to ride the correction"
+    o = int(np.where(st.valid)[0][np.argmax(st.n_obs[st.valid])])
+    kfs = sorted((int(k) for k in m.kf_ids()), key=lambda k: int(m.kf_frame_id[k]))
+    Ks = len(kfs)
+    assert Ks >= 8, f"need a real keyframe chain, got {Ks}"
+    rank = {k: i for i, k in enumerate(kfs)}
+    order = trk.loop_detector._order
+    C = m.covisibility_matrix()
+    pairs = [(int(C[a, b]), a, b) for a in order for b in order
+             if order[a] - order[b] >= trk.cfg.loop_min_gap_kfs and m.kf_valid[a] and m.kf_valid[b]]
+    assert pairs, "no keyframe pair far enough apart in the database"
+    shared, k_rev, partner = max(pairs)
+    # the map as it stood at the revisit: later keyframes are dropped, so
+    # the revisit is the newest keyframe, as in the test
+    for k in kfs[kfs.index(k_rev) + 1:]:
+        m.erase_kf(k)
+        trk.loop_detector.remove(k)
+    trk.ref_kf = k_rev
+    kfs = kfs[: kfs.index(k_rev) + 1]
+    # the tracker's keyframe rotations drift from orthonormal along a run (the
+    # JAX package's too, ROADMAP queue 3), and the correction's rigid
+    # inverses (R^T) assume SO(3): each is first projected back onto it
+    for k in kfs:
+        U, _, Vt = np.linalg.svd(m.kf_tcw[k][:3, :3].astype(np.float64))
+        m.kf_tcw[k, :3, :3] = (U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt).astype(np.float32)
+    final_pre = dict(trk.final_trajectory())
+    Ks = len(kfs)
+    rank = {k: i for i, k in enumerate(kfs)}
+    tcw_pre = {k: m.kf_tcw[k].copy() for k in kfs}
+    mp_pre = m.mp_pos.copy()
+    obj_center_pre = st.pose[o][:3, 3].copy()
+    # up to the partner the map is the reference side, so every pair the
+    # loop can match relates the same two warps
+    D = np_geo.se3_exp([0.0, 0.025, 0.0, 0.0625, 0.0, 0.025])
+    W = [np.eye(4)] * (rank[partner] + 1)
+    while len(W) <= Ks:
+        W.append(W[-1] @ D)
+    for k in kfs:
+        m.kf_tcw[k] = (tcw_pre[k].astype(np.float64) @ np_geo.inv_T(W[rank[k]])).astype(np.float32)
+    # map points ride the warp of their earliest observing keyframe
+    kf_idx, _, mp_idx = m.observations_of(m.mp_ids())
+    first_rank = np.full(m.max_mp, Ks, dtype=np.int64)
+    np.minimum.at(first_rank, mp_idx, np.array([rank[int(k)] for k in kf_idx], dtype=np.int64))
+    for mp in m.mp_ids():
+        r = int(first_rank[mp]) if first_rank[mp] < Ks else rank.get(int(m.mp_first_kf[mp]), 0)
+        m.mp_pos[mp] = (W[r][:3, :3] @ mp_pre[mp].astype(np.float64) + W[r][:3, 3]).astype(np.float32)
+    # the landmark rides the keyframe that _on_loop_corrected anchors it to:
+    # its latest measurement whose keyframe slot is alive (the test takes the
+    # highest-ranked one, which a recycled slot can make another keyframe)
+    anchor_kf = next(d.kf_id for d in reversed(trk.objects.meas[o]) if d.kf_id in rank)
+    Wo = W[rank[anchor_kf]]
+    st.pose[o] = (Wo @ st.pose[o].astype(np.float64)).astype(np.float32)
+    # a drifted tracker keeps no association across the drift: observations
+    # made from beyond the partner's successor of reference-side points are
+    # re-made as displaced duplicates, one per point, at the warp of its
+    # earliest drifted observer
+    rp = rank[partner]
+    kf_idx, kp_idx, mp_idx = m.observations_of(m.mp_ids())
+    obs_rank = np.array([rank[int(k)] for k in kf_idx], dtype=np.int64)
+    cross = (first_rank[mp_idx] <= rp) & (obs_rank > rp + 1)
+    n_cross = 0
+    for orig in np.unique(mp_idx[cross]):
+        sel_o = cross & (mp_idx == orig)
+        dup = m.alloc_mps(1)
+        if len(dup) == 0:
+            break
+        Wd = W[int(obs_rank[sel_o].min())]
+        _copy_point(m, int(orig), int(dup[0]), Wd, mp_pre, int(kf_idx[sel_o][0]))
+        mp_pre[dup[0]] = mp_pre[orig]
+        m.kf_kp_mp[kf_idx[sel_o], kp_idx[sel_o]] = dup[0]
+        m.mp_nobs[dup[0]] = int(sel_o.sum())
+        m.mp_nobs[orig] -= int(sel_o.sum())
+        n_cross += 1
+    # the revisit keyframe's structure, re-triangulated as displaced
+    # duplicates: under real drift it shares no map point with the keyframes
+    # before it (a covisible pair is not a loop, LoopClosing.cc:152-158)
+    Wr = W[rank[k_rev]]
+    kp_mp = m.kf_kp_mp[k_rev]
+    sel = [j for j in np.where((kp_mp >= 0) & m.kf_kp_valid[k_rev])[0] if m.mp_valid[kp_mp[j]]]
+    dups = m.alloc_mps(len(sel))
+    for dup, j in zip(dups, sel):
+        _copy_point(m, int(kp_mp[j]), int(dup), Wr, mp_pre, k_rev)
+        m.mp_nobs[dup] = 1
+        m.kf_kp_mp[k_rev, j] = dup
+
+    def kf_ate():
+        errs = [np.linalg.norm(np_geo.inv_T(m.kf_tcw[k].astype(np.float64))[:3, 3]
+                               - np_geo.inv_T(tcw_pre[k].astype(np.float64))[:3, 3]) for k in kfs]
+        return float(np.sqrt(np.mean(np.square(errs))))
+
+    def obj_err():
+        return float(np.linalg.norm(st.pose[o][:3, 3] - obj_center_pre))
+
+    def traj_ate():
+        """final_trajectory()'s camera centres against their pre-drift ones."""
+        final = dict(trk.final_trajectory())
+        errs = [np.linalg.norm(np_geo.inv_T(final[f].astype(np.float64))[:3, 3]
+                               - np_geo.inv_T(T.astype(np.float64))[:3, 3])
+                for f, T in final_pre.items() if T is not None]
+        return float(np.sqrt(np.mean(np.square(errs))))
+
+    return dict(k_rev=k_rev, partner=partner, shared=shared, kfs=kfs, o=o, anchor=anchor_kf, n_dups=len(dups),
+                n_cross=n_cross, kf_ate=kf_ate, obj_err=obj_err, traj_ate=traj_ate, ate_drifted=kf_ate(),
+                obj_err_drifted=obj_err(), traj_ate_drifted=traj_ate())
+
+
+def _copy_point(m, orig, dup, W, mp_pre, first_kf):
+    """Map point `dup` as a duplicate of `orig`: its pre-drift position under
+    the warp W, its descriptor and viewing geometry, first seen by first_kf."""
+    m.mp_pos[dup] = (W[:3, :3] @ mp_pre[orig].astype(np.float64) + W[:3, 3]).astype(np.float32)
+    m.mp_desc[dup] = m.mp_desc[orig]
+    m.mp_valid[dup] = True
+    m.mp_first_kf[dup] = first_kf
+    m.mp_normal[dup] = m.mp_normal[orig]
+    m.mp_min_dist[dup] = m.mp_min_dist[orig]
+    m.mp_max_dist[dup] = m.mp_max_dist[orig]
+
+
+def _spans(names):
+    from cube_slam_tpu_torch.utils import profiler
+
+    spans = profiler.aggregated()
+    return "; ".join(f"{k} {spans[k][0]:.1f}/{spans[k][4]}" for k in names if k in spans)
+
+
+LOOP_SPANS = ("loop.detect", "loop.verify", "loop.correct", "loop.fuse", "loop.gba")
+
+
+class LoopClosures:
+    """Each loop the tracker closes: the verification that passed and the
+    correction it drove, recorded around the two functions of `lc` (the
+    port's slam/loop_closing unless another package's is given)."""
+
+    def __init__(self, trk, lc=None):
+        if lc is None:
+            from cube_slam_tpu_torch.slam import loop_closing as lc
+
+        self.lc, self.trk, self.rows, self._ver = lc, trk, [], {}
+        self.verify, self.correct = lc.verify_loop_sim3, lc.correct_loop
+
+    def _verify(self, m, a, b, **k):
+        self._ver[(a, b)] = out = self.verify(m, a, b, **k)
+        return out
+
+    def _correct(self, m, loop_kf, matched_kf, sim3_correction, **k):
+        self.rows.append(dict(frame=self.trk.frame_id, pair=(int(matched_kf), int(loop_kf)),
+                              frames=(int(m.kf_frame_id[matched_kf]), int(m.kf_frame_id[loop_kf])),
+                              inliers=self._ver[(loop_kf, matched_kf)][3], scale=float(sim3_correction[0])))
+        return self.correct(m, loop_kf, matched_kf, sim3_correction, **k)
+
+    def __enter__(self):
+        self.lc.verify_loop_sim3, self.lc.correct_loop = self._verify, self._correct
+        return self
+
+    def __exit__(self, *exc):
+        self.lc.verify_loop_sim3, self.lc.correct_loop = self.verify, self.correct
+
+
+def phase10a_loop_run(dev):
+    """Everything on over the 61-frame orbit. Returns the tracker and its EDT
+    launches."""
+    from cube_slam_tpu_torch.ops import hopper_kernels as hk
+    from cube_slam_tpu_torch.slam.system import ObjectSlamTracker, TrackerConfig
+    from cube_slam_tpu_torch.utils import profiler
+
+    seq = loop_sequence()
+    N = seq.num_frames
+    inputs = _object_frames(seq, dev)  # lines before the clock
+    truth = [seq.truth_Twc(f) for f in range(N)]
+    trk = ObjectSlamTracker(seq.K, seq.wh, loop_config(TrackerConfig), ground_Twc0=seq.truth_Twc(0), device=dev)
+    det = trk.objects.detector
+    calls = [0]
+    detect = det.detect_cuboid
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return detect(*a, **k)
+
+    det.detect_cuboid = counted
+    profiler.reset()
+    profiler.enable()
+    ms, kind, promoted = [], [], set()
+    try:
+        with LoopClosures(trk) as closures:
+            torch.cuda.synchronize()
+            hk.edt_launches = 0
+            t_all = time.perf_counter()
+            for f, (g, boxes, lines) in enumerate(inputs):
+                was = trk.state
+                t0 = time.perf_counter()
+                out = trk.track(g, bboxes_2d=boxes, lines=lines)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                kind.append("lost" if out is None else "init" if was == "NOT_INITIALIZED"
+                            else "kf" if trk.last_kf_frame_id == f else "tracked")
+                st = trk.objects.store
+                promoted |= {(int(o), int(st.gen[o])) for o in np.where(st.valid)[0]}
+            traj = trk.final_trajectory()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_all
+            launches = hk.edt_launches
+        spans_a = _spans(LOOP_SPANS + ("obj.detect", "obj.associate", "obj.ba", "kf.total"))
+    finally:
+        profiler.disable()
+        profiler.reset()
+
+    tracked = [fid for fid, T in traj if T is not None]
+    ate = _scaled_ate(traj, truth)
+    lms = _landmarks(trk, seq.scene)
+    med = lambda k: statistics.median([t for t, c in zip(ms, kind) if c == k]) if k in kind else float("nan")  # noqa: E731
+    log(f"[loop] {N} frames {seq.wh[0]}x{seq.wh[1]} there and back, 1500 features x 8 levels, loop closing "
+        f"on (global BA, min gap 6 keyframes), truth box, port LSD lines: initialized at frame "
+        f"{kind.index('init') if 'init' in kind else None}; tracked {len(tracked)}/{N}; keyframes "
+        f"{int(trk.map.kf_valid.sum())}; map points {int(trk.map.mp_valid.sum())}; landmarks {len(lms)} alive, "
+        f"{len(promoted)} promoted; mono_scale_initialized {trk.mono_scale_initialized}; loops closed "
+        f"{trk.loops_closed}; scaled ATE {ate:.4f} m (final trajectory)")
+    for c in closures.rows:
+        log(f"[loop] closed at frame {c['frame']}: keyframes {c['pair'][0]} (frame {c['frames'][0]}) <- "
+            f"{c['pair'][1]} (frame {c['frames'][1]}), {c['inliers']} Sim3 inliers, scale {c['scale']:.4f}")
+    for o, c, sc, err, cerr in lms:
+        log(f"[loop] landmark {o}: centre {np.round(c, 4).tolist()} ({cerr:.4f} m off the true box), half-scale "
+            f"{np.round(sc, 4).tolist()}; min_log_error norm {err:.4f}")
+    log(f"[loop] {N / wall:.3f} frames/s of track() ({wall:.2f} s, host clock, synchronized per frame); "
+        f"tracked non-keyframe frames: median {med('tracked'):.2f} ms ({kind.count('tracked')}); keyframe "
+        f"frames: median {med('kf'):.2f} ms ({kind.count('kf')}); untracked frames {kind.count('lost')}")
+    log(f"[loop] split (total ms / calls): {spans_a}")
+    m = trk.map
+    ortho = [float(np.abs(m.kf_tcw[k][:3, :3].T @ m.kf_tcw[k][:3, :3] - np.eye(3)).max()) for k in m.kf_ids()]
+    log(f"[loop] keyframe rotations' largest |R^T R - I|: {max(ortho):.3g} (the tracker's poses drift from "
+        f"orthonormal along the run, as the JAX package's do)")
+    log(f"[loop] EDT launches on the loop-closing object tracker path: {launches} for {calls[0]} detector calls")
+    assert len(tracked) >= TRACKER_MIN_TRACKED * N, f"tracked only {len(tracked)}/{N}"
+    assert np.isfinite(ate), f"scaled ATE {ate}"
+    assert promoted, "no landmark promoted"
+    assert launches > 0 and launches == calls[0], f"{launches} EDT launches for {calls[0]} detector calls"
+    return trk, launches
+
+
+def phase10b_injected_loop(trk):
+    """The injected end-of-loop drift on phase 10A's live map, closed by
+    _try_close_loop on the revisit keyframe."""
+    from cube_slam_tpu_torch.utils import np_geometry as np_geo
+    from cube_slam_tpu_torch.utils import profiler, serialization
+
+    inj = inject_loop_drift(trk)
+    k_rev = inj["k_rev"]
+    loops_before = trk.loops_closed
+    trk.frame_id += 1
+    trk.last_Tcw = trk.map.kf_tcw[k_rev].copy()
+    reanchor = trk._on_loop_corrected
+    obj_steps = []
+
+    def reanchor_kept(corrections):
+        reanchor(corrections)
+        obj_steps.append(inj["obj_err"]())
+
+    trk._on_loop_corrected = reanchor_kept
+    profiler.reset()
+    profiler.enable()
+    try:
+        with LoopClosures(trk) as closures:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trk._try_close_loop(k_rev, trk.map.covisibility_counts(k_rev))
+            torch.cuda.synchronize()
+            close_ms = 1e3 * (time.perf_counter() - t0)
+        spans_b = _spans(LOOP_SPANS)
+    finally:
+        profiler.disable()
+        profiler.reset()
+    ate_closed, obj_closed, traj_closed = inj["kf_ate"](), inj["obj_err"](), inj["traj_ate"]()
+    final = dict(trk.final_trajectory())
+    stamps = sorted(f for f, T in final.items() if T is not None)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trajectory_tum.txt")
+        serialization.save_trajectory_tum(path, np.asarray(stamps, dtype=np.float64), [final[f] for f in stamps])
+        rows = np.loadtxt(path, ndmin=2)
+    # the writer inverts each pose as a rigid transform (R^T, -R^T t); the
+    # tracker's rotations drift from orthonormal (ROADMAP queue 3), so
+    # np.linalg.inv would read another centre
+    centres = np.stack([np_geo.inv_T(final[f].astype(np.float64))[:3, 3] for f in stamps])
+    gap = float(np.abs(rows[:, 1:4] - centres).max())
+    c = closures.rows[0] if closures.rows else None
+    log(f"[loop-drift] {len(inj['kfs'])} keyframes warped by D^rank; the revisit keyframe {k_rev} (frame "
+        f"{int(trk.map.kf_frame_id[k_rev])}) shared {inj['shared']} points with keyframe {inj['partner']} (frame "
+        f"{int(trk.map.kf_frame_id[inj['partner']])}), its {inj['n_dups']} points made duplicates, and "
+        f"{inj['n_cross']} cross-drift duplicates; _try_close_loop on it: loops closed {loops_before} -> "
+        f"{trk.loops_closed}"
+        + (f", keyframes {c['pair'][0]} <- {c['pair'][1]}, {c['inliers']} Sim3 inliers, scale {c['scale']:.4f}"
+           if c is not None else "")
+        + f"; keyframe ATE {inj['ate_drifted']:.4f} -> {ate_closed:.4f} m (x{ate_closed / inj['ate_drifted']:.3f}); "
+        f"landmark {inj['o']} (anchored to keyframe {inj['anchor']}) drift error {inj['obj_err_drifted']:.4f} -> "
+        f"{obj_closed:.4f} m (x{obj_closed / inj['obj_err_drifted']:.3f}; "
+        f"{' -> '.join(f'{e:.4f}' for e in obj_steps)} after each re-anchoring); final trajectory against its "
+        f"pre-drift self {inj['traj_ate_drifted']:.4f} -> {traj_closed:.4f} m (RMS); {close_ms:.1f} ms (host "
+        f"clock); split {spans_b}")
+    log(f"[loop-drift] save_trajectory_tum wrote {rows.shape[0]} poses to a temporary file; read back, their "
+        f"centres are within {gap:.2g} m of final_trajectory()'s")
+    assert trk.loops_closed > loops_before, "the injected loop did not close"
+    assert ate_closed < inj["ate_drifted"], (inj["ate_drifted"], ate_closed)
+    assert obj_closed < inj["obj_err_drifted"], (inj["obj_err_drifted"], obj_closed)
+    assert traj_closed < inj["traj_ate_drifted"], (inj["traj_ate_drifted"], traj_closed)
+    assert rows.shape[0] == len(stamps) and gap < 1e-5, gap
+
+
+def phase10c_loop_card_vs_cpu(dev):
+    """The constructed drifted loop through MonocularTracker._try_close_loop
+    on the card twice and on the CPU, each map kept as it stood before the
+    global BA."""
+    from cube_slam_tpu_torch.slam.system import MonocularTracker, TrackerConfig
+    from cube_slam_tpu_torch.utils import synth
+
+    cfg = TrackerConfig(loop_min_gap_kfs=10, loop_covis_theta=30, loop_global_ba=True, max_kf=16, max_mp=2048)
+    fields = ("kf_kp_mp", "mp_nobs", "mp_valid", "kf_tcw", "mp_pos")
+    runs = []
+    for device in (dev, dev, "cpu"):
+        trk = MonocularTracker(synth.DRIFTED_LOOP_K, (640, 480), cfg, device=device)
+        true_tcw, est_tcw, _ = synth.build_drifted_loop(trk)
+        pre, gba = {}, trk.global_ba
+
+        def kept(trk=trk, pre=pre, gba=gba):
+            pre.update({f: getattr(trk.map, f).copy() for f in fields})
+            gba()
+
+        trk.global_ba = kept
+        trk.frame_id = synth.DRIFTED_LOOP_N_KF
+        k = synth.DRIFTED_LOOP_N_KF - 1
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trk._try_close_loop(k, trk.map.covisibility_counts(k))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        runs.append(dict(edges=list(trk.loop_edges), pre=pre, post={f: getattr(trk.map, f).copy() for f in fields},
+                         ms=1e3 * (time.perf_counter() - t0)))
+    g, g2, c = runs
+
+    def kf_ate(tcw):
+        return float(np.sqrt(np.mean([np.sum((np.linalg.inv(tcw[i].astype(np.float64))[:3, 3]
+                                              - np.linalg.inv(true_tcw[i].astype(np.float64))[:3, 3]) ** 2)
+                                      for i in range(len(true_tcw))])))
+
+    repeat = all(np.array_equal(g["post"][f], g2["post"][f]) for f in fields)
+    gap_pre = float(np.abs(g["pre"]["kf_tcw"] - c["pre"]["kf_tcw"]).max())
+    gap_post = float(np.abs(g["post"]["kf_tcw"] - c["post"]["kf_tcw"]).max())
+    same_fused = np.array_equal(g["pre"]["kf_kp_mp"], c["pre"]["kf_kp_mp"])
+    log(f"[loop-small] constructed 14-keyframe drifted loop: loop edges card {g['edges']}, CPU {c['edges']}; "
+        f"before the global BA: fused associations equal card vs CPU {same_fused}, keyframe poses within "
+        f"{gap_pre:.3g} (bound {LOOP_POSE_TOL}); after it: poses within {gap_post:.3g}, associations equal "
+        f"{np.array_equal(g['post']['kf_kp_mp'], c['post']['kf_kp_mp'])}; keyframe ATE against the truth "
+        f"{kf_ate(est_tcw):.4f} drifted, {kf_ate(g['post']['kf_tcw']):.4f} card, {kf_ate(c['post']['kf_tcw']):.4f} "
+        f"CPU; _try_close_loop {g['ms']:.1f} / {g2['ms']:.1f} ms card, {c['ms']:.1f} ms CPU (host clock); two card "
+        f"runs bit-identical: {repeat}")
+    assert g["edges"] == c["edges"] == [(0, synth.DRIFTED_LOOP_N_KF - 1)], (g["edges"], c["edges"])
+    assert same_fused, "the fused associations differ card vs CPU"
+    assert gap_pre <= LOOP_POSE_TOL, f"corrected keyframe poses differ card vs CPU by {gap_pre}"
+    assert repeat, "two card runs of the loop path differ"
+
+
+def timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
-    dev = phase0_device()
-    phase1_build()
-    max_err = phase2_edt(dev)
+    t_start = time.perf_counter()
+    dev = timed("phase 0", phase0_device)
+    timed("phase 1", phase1_build)
+    max_err = timed("phase 2", phase2_edt, dev)
     seq = synth_sequence(SLICE_FRAMES, SLICE_WH)
-    edt = phase3_detector(dev, seq)  # the EDT at the main path's own input
-    launches = phase4_slice(dev, seq)
-    phase5_small_reference(dev)
-    phase6_tracker(dev, seq)
-    phase7_tracker_card_vs_cpu(dev)
-    launches_objects = phase8_object_tracker(dev, seq)
-    phase9_object_card_vs_cpu(dev)
+    edt = timed("phase 3", phase3_detector, dev, seq)  # the EDT at the main path's own input
+    launches = timed("phase 4", phase4_slice, dev, seq)
+    timed("phase 5", phase5_small_reference, dev)
+    timed("phase 6", phase6_tracker, dev, seq)
+    timed("phase 7", phase7_tracker_card_vs_cpu, dev)
+    launches_objects = timed("phase 8", phase8_object_tracker, dev, seq)
+    timed("phase 9", phase9_object_card_vs_cpu, dev)
+    trk, launches_loop = timed("phase 10 A", phase10a_loop_run, dev)
+    timed("phase 10 B", phase10b_injected_loop, trk)
+    timed("phase 10 C", phase10c_loop_card_vs_cpu, dev)
+    log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{
         "name": "edt_l2",
@@ -848,6 +1301,7 @@ def main():
         "replaces": "cube_slam_tpu/ops/pallas_kernels.py:27",
         "launches": launches,
         "launches_object_tracker": launches_objects,
+        "launches_loop": launches_loop,
         "max_abs_err": max_err,
         "ms": edt["ms"],
         "plain_ms": edt["plain_ms"],

@@ -66,9 +66,16 @@ def robust_rho(chi2):
     return torch.where(e <= HUBER_MONO, chi2, 2 * HUBER_MONO * e - HUBER_MONO**2)
 
 
-def _cholesky_solve(A, b):
-    L, _ = torch.linalg.cholesky_ex(A)
-    return torch.cholesky_solve(b[..., None], L)[..., 0]
+def _cholesky_solve(A, b, reject_failed=True):
+    """Batched solve; NaN where the factor failed (graph/lm.py explains),
+    unless reject_failed=False: then the step of a failed factor is kept
+    (torch leaves the unfactored block of L as it was, so the step is
+    finite), as local_ba_points does by default (ROADMAP queue 3)."""
+    L, info = torch.linalg.cholesky_ex(A)
+    x = torch.cholesky_solve(b[..., None], L)[..., 0]
+    if not reject_failed:
+        return x
+    return torch.where((info == 0)[..., None], x, torch.nan)
 
 
 def project(Tcw, K, pts):
@@ -231,9 +238,16 @@ def local_ba_points(
     pair_e2=None,  # system then assembles sparsely; e2 < 0 is padding
     num_iters: int = 5,
     schur_window: int = 0,
+    reject_failed: bool = False,
 ):
     """Joint camera-point BA: monocular reprojection edges, plus an
     optional per-edge depth residual row (z_pred - z_meas) * z_si.
+
+    reject_failed=True rejects the step of a failed Cholesky factor of the
+    reduced camera system, as XLA's NaN factor makes JAX's LM do; the
+    default keeps that (finite) step, a departure from JAX that the
+    tracker's local BA still takes (ROADMAP queue 3). The global BA
+    rejects.
 
     The reduced camera system assembles from the dense (Kf, P) W grid by
     default (the tracker's), from an edge-pair list when `pair_e1/e2` are
@@ -370,7 +384,7 @@ def local_ba_points(
         S_f = (S.permute(0, 2, 1, 3).reshape(Kf * 6, Kf * 6) * cm[:, None] * cm[None, :]
                + torch.diag(1.0 - cm))
         rhs_f = rhs.reshape(-1) * cm
-        dc = _cholesky_solve(S_f, rhs_f) * cm
+        dc = _cholesky_solve(S_f, rhs_f, reject_failed=reject_failed) * cm
         dc_b = dc.reshape(Kf, 6)
 
         # back-substitute points: dp = Hpp^-1 (-bp - W^T dc)

@@ -35,10 +35,13 @@ class LMResult(NamedTuple):
 
 
 def _cholesky_solve(A, b):
-    # cholesky_ex reports failure in a tensor instead of syncing to raise;
-    # a failed factor yields non-finite steps that the accept test rejects
-    L, _ = torch.linalg.cholesky_ex(A)
-    return torch.cholesky_solve(b[:, None], L)[:, 0]
+    # cholesky_ex reports failure in a tensor instead of syncing to raise.
+    # A failed factor leaves finite entries in L, so the step is set to NaN
+    # there, as XLA's cho_factor fills a failed factor with NaN: the accept
+    # test then rejects it
+    L, info = torch.linalg.cholesky_ex(A)
+    x = torch.cholesky_solve(b[:, None], L)[:, 0]
+    return torch.where(info == 0, x, torch.nan)
 
 
 def lm_optimize(

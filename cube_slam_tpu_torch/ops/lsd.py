@@ -16,9 +16,10 @@ keeping the contract (image -> [x1 y1 x2 y2] segments with length filtering):
 4. density/length/aspect filters standing in for LSD's NFA test.
 
 Output is a fixed-capacity (max_lines, 4) tensor + validity mask, sorted by
-length descending. The segment sums are index_add_ / scatter_reduce; on a
-GPU they use float atomics, so sums may differ from the JAX package's in the
-last bits.
+length descending. The float segment sums add in a fixed order on every
+run (`graph/ba._segment_sum`: index_add_ on the CPU, a sorted
+index_put_(accumulate=True) on the card), so the card's lines repeat bit for
+bit; they may still differ from the JAX package's in the last bits.
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ..graph.ba import _segment_sum
 
 _ANGLE_TOL = math.radians(22.5)
 
@@ -114,7 +117,7 @@ def _fit_lines_from_support(active, angle, mag, min_pixels, min_length, min_dens
     w = torch.where(act, mag.reshape(-1), 0.0)
 
     def seg(v):
-        return torch.zeros(N + 1, dtype=torch.float32, device=dev).index_add_(0, flat_lab, v)
+        return _segment_sum(v, flat_lab, N + 1)
 
     s_w = seg(w)
     s_x = seg(w * xs)

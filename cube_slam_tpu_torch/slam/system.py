@@ -23,9 +23,12 @@ The local BA of a keyframe stays in flight until the next mapping event or
 until the device reports it done (a CUDA event polled at the start of each
 frame); on the CPU, torch runs synchronously and the fold is always ready.
 
-Not ported yet: loop closing (`enable_loop_closing=True`, with the object
-landmarks' `_on_loop_corrected`) and the software-pipelined dispatch
-(`pipeline=True`); both raise.
+Loop closing (`enable_loop_closing=True`, the default) runs inline at each
+keyframe: signature detection, Sim3 verification, essential-graph
+correction, loop fusion and global BA (LoopClosing::Run without its thread),
+and the object tracker re-anchors its landmarks through the correction.
+
+Not ported: the software-pipelined dispatch (`pipeline=True`); it raises.
 """
 
 from __future__ import annotations
@@ -98,10 +101,6 @@ class MonocularTracker:
 
     def __init__(self, K, img_wh, config: TrackerConfig | None = None, device=None):
         self.cfg = config or TrackerConfig()
-        if self.cfg.enable_loop_closing:
-            raise NotImplementedError(
-                "enable_loop_closing=True: loop closing (Sim3 verification, loop "
-                "correction, loop fusion) comes with slice 4 of the port")
         if self.cfg.pipeline:
             raise NotImplementedError(
                 "pipeline=True: the software-pipelined dispatch is not ported; it "
@@ -127,6 +126,8 @@ class MonocularTracker:
         self._traj_rel = []
         self.tracked_inliers = 0
         self.loop_detector = lc.LoopDetector(min_gap_kfs=self.cfg.loop_min_gap_kfs)
+        self.loops_closed = 0
+        self.loop_edges = []  # (kf_a, kf_b) closed pairs (GetLoopEdges analog)
         self._K_dev = self._t(self.K)
         self._img_wh_dev = self._t(self.img_wh)
         # device copies of the map arrays the per-frame step reads
@@ -652,6 +653,7 @@ class MonocularTracker:
         self.last_kf_frame_id = -1
         self.tracked_inliers = 0
         self.loop_detector = lc.LoopDetector(min_gap_kfs=self.cfg.loop_min_gap_kfs)
+        self.loop_edges = []
         self._last_rel = None
         # drop stale device counter deltas along with the map
         self._vis_acc = self._found_acc = None
@@ -762,13 +764,102 @@ class MonocularTracker:
         with profiler.span("kf.cull_refresh"):
             self._cull_keyframes()
             self._refresh_mp_geometry(self.map.mp_ids())
-        # keyframe database insert (relocalization candidates)
+        # keyframe database insert (relocalization + loop candidates)
         with profiler.span("kf.loop"):
             self.loop_detector.add(k, self.map.kf_kp_desc[k], self.map.kf_kp_valid[k])
+            # loop closing (LoopClosing::Run, inline)
+            if cfg.enable_loop_closing:
+                self._try_close_loop(k, counts)
         # fold the local BA as soon as the device reports it done
         self._apply_pending_map(only_if_ready=True)
         if profiler._enabled:
             profiler._records["kf.total"].append(time.perf_counter() - t_kf0)
+
+    def _try_close_loop(self, k, covis_counts):
+        """DetectLoop -> verify Sim3 -> CorrectLoop (essential graph with
+        covisibility + past loop edges) -> SearchAndFuse -> global BA
+        (LoopClosing::Run + RunGlobalBundleAdjustment, inline)."""
+        m = self.map
+        covisible = [int(i) for i in np.where(covis_counts >= 15)[0]]
+        with profiler.span("loop.detect"):
+            cands = self.loop_detector.detect(k, covisible)[:3]
+        for cand in cands:
+            if not m.kf_valid[cand]:
+                continue
+            with profiler.span("loop.verify"):
+                ver = lc.verify_loop_sim3(m, k, cand, K=self.K, seed=self.frame_id, device=self.device)
+            if ver is None:
+                continue
+            s, R, t, n_in = ver
+            # the correction rewrites poses map-wide: fold the in-flight local
+            # BA first (unconditionally), or it would overwrite the correction
+            self._apply_pending_map()
+            with profiler.span("loop.correct"):
+                corrections = lc.correct_loop(
+                    m, loop_kf=k, matched_kf=cand, sim3_correction=(s, R, t),
+                    covis_theta=self.cfg.loop_covis_theta, extra_loop_edges=self.loop_edges,
+                    device=self.device)
+                self._on_loop_corrected(corrections)
+            self.loop_edges.append((int(cand), int(k)))
+            with profiler.span("loop.fuse"):
+                self._search_and_fuse_loop(k, cand)
+            if self.cfg.loop_global_ba:
+                # world-frame extras (object landmarks) ride the global BA's
+                # second move too
+                with profiler.span("loop.gba"):
+                    pre_gba = {int(kf): m.kf_tcw[kf].astype(np.float64).copy() for kf in m.kf_ids()}
+                    self.global_ba()
+                    self._on_loop_corrected({
+                        kf: (m.kf_tcw[kf].astype(np.float64), old, 1.0)
+                        for kf, old in pre_gba.items()
+                        if m.kf_valid[kf] and not np.allclose(m.kf_tcw[kf], old, atol=1e-7)})
+            self.last_Tcw = m.kf_tcw[k].copy()
+            self.velocity = np.eye(4, dtype=np.float32)
+            # the host rewrote poses, points and associations: the next
+            # frame re-uploads the map and re-seeds the device state
+            self._bump_map()
+            self.loops_closed += 1
+            logger.info("loop closed: KF %d -> KF %d (%d Sim3 inliers)", k, cand, n_in)
+            break
+
+    def _on_loop_corrected(self, corrections):
+        """Hook: a loop correction rewrote keyframe poses + map points.
+        `corrections`: kf -> (new_Tcw, old_Tcw, sim3_scale). Subclasses
+        carrying additional world-frame state (object landmarks) re-anchor
+        it here; the base tracker has nothing else to move."""
+
+    def _search_and_fuse_loop(self, k, matched_kf, radius=4.0):
+        """SearchAndFuse (LoopClosing.cc:536-580): after correction, project
+        the matched side's map points (up to 1024, by observations) into the
+        current keyframe and merge duplicates; the loop-side point replaces
+        the drifted one. The JAX package pads the candidates to 1024
+        invalid rows, which no match can take; here they are left out."""
+        m = self.map
+        loop_mp = m.kf_kp_mp[matched_kf]
+        ids = np.unique(loop_mp[loop_mp >= 0])
+        ids = ids[m.mp_valid[ids]]
+        if len(ids) == 0:
+            return
+        cand = _select_best(ids, m.mp_nobs[ids].astype(np.float64), 1024,
+                            "loop fuse candidates").astype(np.int64)
+        mp_to_kp, _ = trk.search_local_points(
+            self._t(m.kf_tcw[k]), self._K_dev,
+            self._t(m.mp_pos[cand]), self._t(m.mp_desc[cand]), self._t(m.mp_level[cand]),
+            torch.ones(len(cand), dtype=torch.bool, device=self.device),
+            self._t(m.mp_normal[cand]), self._t(m.mp_min_dist[cand]), self._t(m.mp_max_dist[cand]),
+            self._t(m.kf_kp_xy[k]), self._t(m.kf_kp_desc[k]), self._t(m.kf_kp_level[k]),
+            self._t(m.kf_kp_valid[k]), torch.zeros(m.n_kp, dtype=torch.bool, device=self.device),
+            self._img_wh_dev, float(radius), n_levels=self.cfg.n_levels)
+        mp_to_kp = mp_to_kp.cpu().numpy()
+        for i in np.where(mp_to_kp >= 0)[0]:
+            mp = int(cand[i])
+            kp = int(mp_to_kp[i])
+            existing = int(m.kf_kp_mp[k, kp])
+            if existing < 0:
+                m.kf_kp_mp[k, kp] = mp
+                m.mp_nobs[mp] += 1
+            elif existing != mp and m.mp_valid[existing] and m.mp_valid[mp]:
+                m.replace_mp(existing, mp)
 
     def _cull_map_points(self, new_kf):
         """MapPointCulling (LocalMapping.cc:249-318): the found/visible
@@ -977,9 +1068,10 @@ class MonocularTracker:
         m.mp_min_dist[uniq] = m.mp_max_dist[uniq] / (trk.SCALE_FACTOR ** (self.cfg.n_levels - 1))
 
     # ------------------------------------------------------------------
-    def _local_ba(self, local_kfs, fixed, pin_gauge=True):
+    def _local_ba(self, local_kfs, fixed, pin_gauge=True, reject_failed=False):
         """Synchronous local BA (initialization, global BA)."""
-        self._local_ba_apply(self._local_ba_dispatch(local_kfs, fixed, pin_gauge=pin_gauge))
+        self._local_ba_apply(self._local_ba_dispatch(local_kfs, fixed, pin_gauge=pin_gauge,
+                                                     reject_failed=reject_failed))
 
     def _apply_pending_map(self, only_if_ready=False):
         """Fold the in-flight local BA into the map: at the start of every
@@ -1004,7 +1096,7 @@ class MonocularTracker:
                 self.last_Tcw = (T_rel @ self.map.kf_tcw[ref].astype(np.float64)).astype(np.float32)
         self._bump_map()
 
-    def _local_ba_dispatch(self, local_kfs, fixed, pin_gauge=True):
+    def _local_ba_dispatch(self, local_kfs, fixed, pin_gauge=True, reject_failed=False):
         cfg = self.cfg
         m = self.map
         kfs = list(dict.fromkeys(list(local_kfs) + list(fixed)))
@@ -1060,7 +1152,8 @@ class MonocularTracker:
             self._t(obs_kf), self._t(obs_pt), self._t(obs_uv), self._t(obs_si),
             torch.ones(E, dtype=torch.bool, device=self.device), self._t(kf_fixed),
             torch.ones(len(mp_set), dtype=torch.bool, device=self.device),
-            obs_z=self._t(obs_z), obs_z_si=self._t(obs_z_si), num_iters=cfg.local_ba_iters)
+            obs_z=self._t(obs_z), obs_z_si=self._t(obs_z_si), num_iters=cfg.local_ba_iters,
+            reject_failed=reject_failed)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
@@ -1113,12 +1206,14 @@ class MonocularTracker:
         """GlobalBundleAdjustemnt (Optimizer.cc:57-64): BA over every valid
         keyframe and map point, the first keyframe fixed, the scale gauge
         free. The JAX package's `num_iters` argument is unused there and is
-        left out; the iterations are cfg.local_ba_iters."""
+        left out; the iterations are cfg.local_ba_iters. A step whose
+        Cholesky factor failed is rejected, as in JAX (the inline local BA
+        still keeps it: ROADMAP queue 3)."""
         self._apply_pending_map()
         kfs = [int(k) for k in self.map.kf_ids()]
         if len(kfs) < 2:
             return
-        self._local_ba(kfs, fixed=[min(kfs)], pin_gauge=False)
+        self._local_ba(kfs, fixed=[min(kfs)], pin_gauge=False, reject_failed=True)
         self._bump_map()
 
     def _cull_keyframes(self, keep_latest=2, redundancy=0.9):
@@ -1446,6 +1541,34 @@ class ObjectSlamTracker(MonocularTracker):
         # scale init): fold the in-flight point BA first
         self._apply_pending_map()
         self._keyframe_objects(self.ref_kf)
+
+    def _on_loop_corrected(self, corrections):
+        """Re-anchor object landmarks through their latest measurement
+        keyframe after a loop correction, as correct_loop re-anchors map
+        points: the pose goes through that keyframe's camera frame, the
+        translation and the free scale are divided by the Sim3 scale. A
+        fix_scale landmark keeps its metric extent. (The reference's
+        LoopClosing leaves MapObjects at their stale world poses.) The loop
+        runs inside the plain keyframe step, before this keyframe's object
+        step."""
+        st = self.objects.store
+        for o in np.where(st.valid)[0]:
+            anchor = None
+            for det in reversed(self.objects.meas.get(int(o)) or ()):
+                if det.kf_id in corrections:
+                    anchor = det.kf_id
+                    break
+            if anchor is None:
+                continue
+            new_Tcw, old_Tcw, s_ref = corrections[anchor]
+            pose_cam = old_Tcw @ st.pose[o].astype(np.float64)
+            pose_cam[:3, 3] /= s_ref
+            st.pose[o] = (np_geo.inv_T(new_Tcw) @ pose_cam).astype(np.float32)
+            if not st.fix_scale[o]:
+                st.scale[o] = (st.scale[o] / s_ref).astype(np.float32)
+            elif abs(s_ref - 1.0) > 0.1:
+                logger.warning("loop Sim3 scale %.3f rescaled the map around fixed-scale object %d; "
+                               "its metric extent is kept", s_ref, o)
 
     def _keyframe_objects(self, k):
         """The object part of a keyframe step: detect on keyframe k, associate

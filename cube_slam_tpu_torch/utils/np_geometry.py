@@ -105,3 +105,19 @@ def minimal9_to_pose_scale(v9):
     v9 = np.asarray(v9, dtype=np.float64)
     R = euler_zyx_to_rot(v9[3], v9[4], v9[5])
     return make_T(R, v9[:3]), v9[6:9].copy()
+
+
+def se3_exp(xi):
+    """se3 tangent [omega, upsilon] -> (4, 4) float64 transform (the
+    Rodrigues form of utils/geometry.se3_exp, in numpy)."""
+    w, v = np.asarray(xi[:3], dtype=np.float64), np.asarray(xi[3:], dtype=np.float64)
+    th = float(np.linalg.norm(w))
+    W = np.array([[0.0, -w[2], w[1]], [w[2], 0.0, -w[0]], [-w[1], w[0], 0.0]])
+    if th < 1e-9:
+        a, b, c = 1.0, 0.5, 1.0 / 6.0
+    else:
+        a, b, c = np.sin(th) / th, (1.0 - np.cos(th)) / th**2, (1.0 - np.sin(th) / th) / th**2
+    T = np.eye(4)
+    T[:3, :3] = np.eye(3) + a * W + b * W @ W
+    T[:3, 3] = (np.eye(3) + b * W + c * W @ W) @ v
+    return T

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import np_geometry as np_geo
+
 
 def value_noise_texture(size=1024, octaves=5, seed=0, contrast=1.0):
     """Multi-octave value noise in [0, 255] with plenty of corners."""
@@ -311,3 +313,103 @@ class SynthSequence:
         if bb is None:
             return np.zeros((0, 5))
         return np.concatenate([bb, [1.0]])[None, :]
+
+
+# ---------------------------------------------------------------------------
+# a constructed end-of-loop map (the drifted loop of tests/test_loop_system.py)
+# ---------------------------------------------------------------------------
+
+DRIFTED_LOOP_K = np.array([[400.0, 0, 320], [0, 400.0, 240], [0, 0, 1]], dtype=np.float32)
+DRIFTED_LOOP_N_KF = 14
+
+
+def drifted_loop_poses(n=DRIFTED_LOOP_N_KF, drift=(0.0, 0.012, 0.0, 0.03, 0.0, 0.0)):
+    """(true Tcw, estimated Tcw), (n, 4, 4) float32: a closed circle of n
+    keyframes and its estimate, each step drifted by `drift`."""
+    step = np_geo.se3_exp([0.0, 2 * np.pi / n, 0.0, 0.4, 0.0, 0.0]).astype(np.float32)
+    D = np_geo.se3_exp(drift).astype(np.float32)
+    T_true, T_est = np.eye(4, dtype=np.float32), np.eye(4, dtype=np.float32)
+    true_tcw, est_tcw = [], []
+    for _ in range(n):
+        true_tcw.append(T_true.copy())
+        est_tcw.append(T_est.copy())
+        T_true = (step @ T_true).astype(np.float32)
+        T_est = (D @ step @ T_est).astype(np.float32)
+    return np.stack(true_tcw), np.stack(est_tcw)
+
+
+def build_drifted_loop(tracker, seed=11, pts_per_kf=48, share_prev=32):
+    """Fill a fresh monocular tracker's map, keyframe database and
+    trajectories (either package's: only the host map API is used) with the
+    end-of-loop situation LoopClosing.cc:401-580 resolves, as
+    tests/test_loop_system.py builds it: 14 keyframes around a circle whose
+    estimated poses drift step by step, 48 points per keyframe (32 shared
+    with the previous one), the last keyframe re-observing the first one's
+    points as new, drift-displaced map points with ~12% of their descriptor
+    bits flipped. K is DRIFTED_LOOP_K (640x480). Returns (true Tcw,
+    estimated Tcw, map-point ids per keyframe)."""
+    r = np.random.default_rng(seed)
+    n_kf = DRIFTED_LOOP_N_KF
+    true_tcw, est_tcw = drifted_loop_poses(n_kf)
+    m = tracker.map
+
+    def project(Tcw, pts):
+        pc = pts @ Tcw[:3, :3].T + Tcw[:3, 3]
+        uv = pc @ DRIFTED_LOOP_K.T
+        return uv[:, :2] / np.maximum(uv[:, 2:3], 1e-6), pc[:, 2]
+
+    phys_pts, descs = [], []
+    for i in range(n_kf):
+        Twc = np.linalg.inv(true_tcw[i].astype(np.float64))
+        local = np.stack([r.uniform(-1.5, 1.5, pts_per_kf), r.uniform(-1.0, 1.0, pts_per_kf),
+                          r.uniform(3.0, 6.0, pts_per_kf)], axis=1)
+        phys_pts.append((local @ Twc[:3, :3].T + Twc[:3, 3]).astype(np.float32))
+        descs.append(r.integers(0, 2**32, (pts_per_kf, 8), dtype=np.uint32))
+    flip = (r.integers(0, 2**32, (pts_per_kf, 8), dtype=np.uint32)
+            & r.integers(0, 2**32, (pts_per_kf, 8), dtype=np.uint32)
+            & r.integers(0, 2**32, (pts_per_kf, 8), dtype=np.uint32))
+    desc_revisit = descs[0] ^ flip
+    # per-keyframe world distortion: p_est = G_i p_true keeps the camera-frame
+    # geometry exact under the drifted pose
+    G = [np.linalg.inv(est_tcw[i].astype(np.float64)) @ true_tcw[i].astype(np.float64) for i in range(n_kf)]
+    mp_ids_of_kf = []
+    for i in range(n_kf):
+        k = m.alloc_kf()
+        m.kf_valid[k] = True
+        m.kf_tcw[k] = est_tcw[i]
+        m.kf_frame_id[k] = i
+        base_pts, base_desc = (phys_pts[i], descs[i]) if i < n_kf - 1 else (phys_pts[0], desc_revisit)
+        p_est = (base_pts @ G[i][:3, :3].T + G[i][:3, 3]).astype(np.float32)
+        ids = m.alloc_mps(pts_per_kf)
+        m.mp_pos[ids] = p_est
+        m.mp_valid[ids] = True
+        m.mp_desc[ids] = base_desc
+        m.mp_first_kf[ids] = k
+        m.mp_nobs[ids] = 1
+        # scale bounds of level-0 keypoints (UpdateNormalAndDepth)
+        view = p_est - np.linalg.inv(est_tcw[i].astype(np.float64))[:3, 3]
+        m.mp_max_dist[ids] = np.linalg.norm(view, axis=1)
+        m.mp_min_dist[ids] = m.mp_max_dist[ids] / 1.2 ** 7
+        m.mp_normal[ids] = (view / np.linalg.norm(view, axis=1, keepdims=True)).astype(np.float32)
+        mp_ids_of_kf.append(ids)
+        uv, z = project(est_tcw[i], p_est)
+        m.kf_kp_xy[k, :pts_per_kf] = uv
+        m.kf_kp_desc[k, :pts_per_kf] = base_desc
+        m.kf_kp_valid[k, :pts_per_kf] = z > 0
+        m.kf_kp_mp[k, :pts_per_kf] = ids
+        if i > 0:  # covisibility: also observe some of the previous keyframe's points
+            prev = mp_ids_of_kf[i - 1][:share_prev]
+            uv2, z2 = project(est_tcw[i], m.mp_pos[prev])
+            s0 = pts_per_kf
+            m.kf_kp_xy[k, s0:s0 + share_prev] = uv2
+            m.kf_kp_desc[k, s0:s0 + share_prev] = m.mp_desc[prev]
+            m.kf_kp_valid[k, s0:s0 + share_prev] = z2 > 0
+            m.kf_kp_mp[k, s0:s0 + share_prev] = prev
+            m.mp_nobs[prev] += 1
+        # the keyframe database and the as-tracked trajectory, as track() does
+        tracker.loop_detector.add(k, m.kf_kp_desc[k], m.kf_kp_valid[k])
+        tracker.frame_id = i
+        tracker.ref_kf = k
+        tracker.trajectory.append((i, est_tcw[i].copy()))
+        tracker._record_pose(est_tcw[i])
+    return true_tcw, est_tcw, mp_ids_of_kf

@@ -145,3 +145,18 @@ def test_step_frame_card_vs_cpu(cuda):
     np.testing.assert_allclose(sg[:16], sc[:16], atol=1e-3)
     assert abs(sg[17] - sc[17]) <= 0.02 * sc[17]
     assert (mg == mc).mean() >= 0.98
+
+
+def test_lsd_lines_repeat_bit_for_bit_on_the_card(cuda):
+    """LSD's segment sums add in a fixed order on the card
+    (graph/ba._segment_sum), so two computations of a frame's lines are
+    bit-identical, as chip_smoke.py phase 4 checks over 58 frames."""
+    from cube_slam_tpu_torch.ops import lsd
+    from cube_slam_tpu_torch.utils import io, synth
+
+    seq = synth.SynthSequence(3, K=io.CabinetSequence.K, wh=(640, 480))
+    for f in range(3):
+        g = torch.as_tensor(seq.gray(f), device=cuda)
+        a = lsd.detect_lines(g, min_length=15.0, max_lines=128)
+        b = lsd.detect_lines(g, min_length=15.0, max_lines=128)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))

@@ -26,12 +26,13 @@ def _modules():
 SLICE2 = ["ops.orb", "ops.matching", "utils.profiler", "utils.metrics", "slam.state", "graph.ba",
           "slam.initializer", "slam.pnp", "slam.tracking", "slam.loop_closing", "slam.system"]
 SLICE3 = ["ops.ransac", "slam.ground", "slam.kitti", "slam.objects", "graph.object_ba"]
+SLICE4 = ["slam.sim3", "slam.loop_closing", "utils.serialization"]
 
 
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "cube_slam_tpu_torch.models.detector" in mods and len(mods) >= 26
-    assert not {"cube_slam_tpu_torch." + m for m in SLICE2 + SLICE3} - set(mods)
+    assert not {"cube_slam_tpu_torch." + m for m in SLICE2 + SLICE3 + SLICE4} - set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -42,6 +43,22 @@ def test_every_module_imports_without_jax():
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
                          text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("module", SLICE4)
+def test_loop_slice_module_imports_alone_without_jax(module):
+    """Each module of the loop-closing slice, imported alone in a fresh
+    interpreter, pulls in neither JAX nor the JAX package."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('cube_slam_tpu_torch.{module}')\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'cube_slam_tpu', 'triton')))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
 
@@ -78,9 +95,9 @@ def _entry_point(name):
     if name == "ObjectSlamDemo":
         return ObjectSlamDemo(max_frames=8)
     if name == "MonocularTracker":
-        return MonocularTracker(np.eye(3), (320, 240), TrackerConfig(enable_loop_closing=False))
+        return MonocularTracker(np.eye(3), (320, 240), TrackerConfig())
     if name == "ObjectSlamTracker":
-        return ObjectSlamTracker(np.eye(3), (320, 240), TrackerConfig(enable_loop_closing=False))
+        return ObjectSlamTracker(np.eye(3), (320, 240), TrackerConfig())
     if name == "CuboidDetector":
         return CuboidDetector()
     if name == "CuboidDetector.from_config":

@@ -288,9 +288,15 @@ def test_rescales_match_jax():
 
 @pytest.mark.parametrize("flag", ["pipeline", "enable_loop_closing"])
 def test_object_tracker_unported_modes_raise(flag):
-    cfg = dict(OBJECT_GATE_CONFIG, **{flag: True})
-    with pytest.raises(NotImplementedError):
-        tsys.ObjectSlamTracker(GATE_A_K, (320, 240), tsys.TrackerConfig(**cfg), device="cpu")
+    """pipeline=True is still refused; with loop closing the object tracker
+    builds and starts with no loop closed."""
+    cfg = tsys.TrackerConfig(**dict(OBJECT_GATE_CONFIG, **{flag: True}))
+    if flag == "pipeline":
+        with pytest.raises(NotImplementedError):
+            tsys.ObjectSlamTracker(GATE_A_K, (320, 240), cfg, device="cpu")
+    else:
+        t = tsys.ObjectSlamTracker(GATE_A_K, (320, 240), cfg, device="cpu")
+        assert t.loops_closed == 0 and t.loop_edges == [] and t.cfg.enable_loop_closing
 
 
 def test_object_tracker_reset_and_defaults():

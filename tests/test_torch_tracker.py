@@ -6,6 +6,7 @@ stated bounds."""
 
 import numpy as np
 import pytest
+import torch
 from torch_parity_utils import GATE_A_CONFIG, GATE_A_K, gate_a_sequence, sync_fold_jax_tracker
 
 from cube_slam_tpu.slam.tracking import evaluate_ate_scaled as jax_ate
@@ -81,13 +82,20 @@ def test_ate_helper_matches_jax(runs):
 
 @pytest.mark.parametrize("flag", ["pipeline", "enable_loop_closing"])
 def test_unported_modes_raise(flag):
-    cfg = dict(GATE_A_CONFIG, **{flag: True})
-    with pytest.raises(NotImplementedError):
-        tsys.MonocularTracker(GATE_A_K, (320, 240), tsys.TrackerConfig(**cfg))
-    # the config defaults keep the JAX package's (loop closing on), so the
-    # default tracker is refused too rather than run without it
-    with pytest.raises(NotImplementedError):
-        tsys.MonocularTracker(GATE_A_K, (320, 240))
+    """pipeline=True is still refused; loop closing is ported: the tracker
+    builds with it (the default, as in the JAX package) and starts with no
+    loop closed. Without a device the default tracker asks for the card."""
+    cfg = tsys.TrackerConfig(**dict(GATE_A_CONFIG, **{flag: True}))
+    if flag == "pipeline":
+        with pytest.raises(NotImplementedError):
+            tsys.MonocularTracker(GATE_A_K, (320, 240), cfg, device="cpu")
+    else:
+        t = tsys.MonocularTracker(GATE_A_K, (320, 240), cfg, device="cpu")
+        assert t.cfg.enable_loop_closing and t.loops_closed == 0 and t.loop_edges == []
+        assert tsys.TrackerConfig().enable_loop_closing
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError):
+            tsys.MonocularTracker(GATE_A_K, (320, 240))
 
 
 def test_tracker_config_matches_jax():

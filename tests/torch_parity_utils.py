@@ -10,8 +10,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cube_slam_tpu_torch.utils.synth import DRIFTED_LOOP_K as LOOP_K  # noqa: F401
+from cube_slam_tpu_torch.utils.synth import DRIFTED_LOOP_N_KF as LOOP_N_KF  # noqa: F401
+from cube_slam_tpu_torch.utils.synth import build_drifted_loop  # noqa: F401
+
 # tier-1 runs pytest-xdist with several workers: keep each one's torch small
 torch.set_num_threads(2)
+
+# the constructed drifted loop of tests/test_loop_system.py
+# (synth.build_drifted_loop: 14 keyframes, 640x480, LOOP_K)
+LOOP_CONFIG = dict(loop_min_gap_kfs=10, loop_covis_theta=30, loop_global_ba=True, max_kf=16, max_mp=2048)
 
 # TUM-cabinet intrinsics (main_obj.cpp:346-349) at half resolution, for the
 # 320x240 renders the CPU tests use
