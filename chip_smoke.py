@@ -34,7 +34,9 @@ Phases (any failure exits non-zero before a result is printed):
    features, 8 levels, loop closing off), then final_trajectory(). Prints
    frames tracked, keyframes, map points, scaled ATE, ms per tracked frame
    and per keyframe frame, the profiler's per-stage split, and the device
-   busy share over 6 frames under torch.profiler. The plain tracker runs
+   busy share over frames 20-25 of the same run under torch.profiler
+   (frames/s and the per-frame times leave those 6 frames out). The plain
+   tracker runs
    no hand kernel (it detects no objects): the kernel counts are reset
    before it and read after it, and must stay 0.
 7. tracker card vs CPU: the 14-frame 320x240 tracker sequence of
@@ -77,8 +79,24 @@ Phases (any failure exits non-zero before a result is printed):
    twice on the card and once on the CPU: the same loop edge, the same
    fused associations and keyframe poses within LOOP_POSE_TOL before the
    global BA; whether the two card runs are bit-identical is printed.
+11. the depth inputs. A: RgbdTracker.track(gray, depth) over phase 6's
+   58-frame 640x480 orbit with each frame's rendered depth, at the TUM
+   preset (1500 features x 8 levels, depth_max 8 m). B: StereoTracker.track(
+   left, right) over a 40-frame 1241x376 orbit at KITTI 00-02's camera
+   (3000 features x 8 levels, baseline 0.537 m, depth_max 40 m), each right
+   image rendered from the left pose moved by the baseline along the
+   camera's x axis. Each prints frames tracked, keyframes, map points, the
+   unaligned metric ATE (the first tracked pose mapped by its truth pose),
+   frames/s, median ms per tracked and per keyframe frame, the kf.* and
+   ba.fold spans and the host transfers that _kf_map_ratio makes; B also
+   stereo_match_keypoints' ms per frame (CUDA events) and the keypoints it
+   matches. Neither path launches the EDT kernel (checked). C: the two
+   gates of tests/test_rgbd_stereo.py (320x240) on the card twice and on
+   the CPU, the fold forced synchronous: the same frames tracked and
+   keyframes, poses within DEPTH_POSE_TOL, the two card runs bit-identical.
 
-Each phase prints its seconds.
+Each phase prints its seconds, and the last [time] line the whole run's
+against the 1,200 s limit.
 
 The second-to-last line is a JSON object of the kernels and their numbers;
 the last line is {"ok": true, "device": {...}}.
@@ -105,6 +123,7 @@ SLICE_WH = (640, 480)
 DETECTOR_TOL = 1e-4   # packed top-k fields, kernel vs plain EDT (same card)
 SMALL_TOL = 5e-3      # card vs CPU online run (see tests/test_torch_slice.py)
 TRACKER_MIN_TRACKED = 0.7  # share of the 58 frames phase 6 must track
+PROFILED_FRAMES = range(20, 26)  # phase 6's frames under torch.profiler
 TRACKER_ATE_MAX = 0.6      # m: phase 6 read 0.2811 on its first card run (JAX: 0.216)
 # phase 7, card vs CPU up to the monocular gauge (the map's scale is free and
 # float rounding moves it by a few percent): rotations, and the camera
@@ -129,6 +148,22 @@ OBJECT_LANDMARK_SCALE_TOL = 0.6
 # within 1e-4)
 LOOP_FRAMES = 61
 LOOP_POSE_TOL = 1e-3
+# phase 11: the depth inputs. 11A at the TUM preset over phase 6's orbit;
+# 11B at KITTI 00-02's camera (cube_slam_tpu/config.py kitti_config), its
+# stereo baseline (examples/run_kitti_stereo_slam.py) and depth range
+# (cube_slam_tpu/slam/kitti.py KittiStereoTracker)
+KITTI_K = np.array([[718.856, 0.0, 607.1928], [0.0, 718.856, 185.2157], [0.0, 0.0, 1.0]])
+KITTI_WH = (1241, 376)
+KITTI_BASELINE = 0.537150588
+STEREO_FRAMES = 40
+RGBD_DEPTH_MAX = 8.0
+STEREO_DEPTH_MAX = 40.0
+DEPTH_MIN_TRACKED = 0.8
+RGBD_ATE_MAX = 0.15    # m, tests/test_rgbd_stereo.py's RGBD bound
+STEREO_ATE_MAX = 0.2   # m, its stereo bound
+# 11C: tracked poses card vs CPU (entries of Tcw; the CPU parity tests hold
+# the port to JAX within 5e-3)
+DEPTH_POSE_TOL = 5e-3
 
 
 def log(*a):
@@ -431,13 +466,11 @@ def phase5_small_reference(dev):
     log(f"[small] 3 frames 320x240 on the card and on the CPU agree within {SMALL_TOL}")
 
 
-def _always_fold_tracker():
-    """MonocularTracker folding each local BA at once: the card's
-    event-polled fold may land a frame later than the CPU's, which changes
-    the map."""
-    from cube_slam_tpu_torch.slam.system import MonocularTracker
+def _always_fold(cls):
+    """`cls` folding each local BA at once: the card's event-polled fold may
+    land a frame later than the CPU's, which changes the map."""
 
-    class AlwaysFold(MonocularTracker):
+    class AlwaysFold(cls):
         def _apply_pending_map(self, only_if_ready=False):
             return super()._apply_pending_map(only_if_ready=False)
 
@@ -453,19 +486,49 @@ def _scaled_ate(traj, truth):
     return evaluate_ate_scaled(np.stack([T for _, T in est]), np.stack([truth[f] for f, _ in est]))
 
 
-def _device_busy_share(trk, frames):
-    """Device busy share over `frames` under torch.profiler: the union of
-    the card's kernel and copy intervals over the host wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+def drive(trk, inputs, sync=None, after_frame=None):
+    """Track one frame per entry of `inputs` (track()'s positional
+    arguments), timing each on the host clock with `sync` (by default
+    torch.cuda.synchronize) after it, then take final_trajectory().
+    `after_frame(f)` runs after frame f is synced.
+    Returns (ms per frame, each frame's kind: "lost", "init", "kf" or
+    "tracked", the final trajectory, the whole run's wall seconds)."""
+    sync = sync or torch.cuda.synchronize
+    ms, kind = [], []
+    sync()
+    t_all = time.perf_counter()
+    for f, args in enumerate(inputs):
+        was = trk.state
         t0 = time.perf_counter()
-        for g in frames:
-            trk.track(g)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        out = trk.track(*args)
+        sync()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        kind.append("lost" if out is None else "init" if was == "NOT_INITIALIZED"
+                    else "kf" if trk.last_kf_frame_id == f else "tracked")
+        if after_frame is not None:
+            after_frame(f)
+    traj = trk.final_trajectory()
+    sync()
+    return ms, kind, traj, time.perf_counter() - t_all
+
+
+def _promoted_into(trk, promoted):
+    """A drive() hook adding each live landmark's (slot, generation) to
+    `promoted` after every frame."""
+
+    def note(f):
+        st = trk.objects.store
+        promoted.update((int(o), int(st.gen[o])) for o in np.where(st.valid)[0])
+
+    return note
+
+
+def busy_share(prof):
+    """The device's busy time under a finished torch.profiler run: the union
+    of the card's kernel and copy intervals. Returns
+    (device events, busy seconds, the six costliest kernels by device us)."""
+    from torch.autograd import DeviceType
+
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     iv = sorted((e.time_range.start, e.time_range.end) for e in dev_events)
     busy, end = 0.0, -1.0
@@ -476,8 +539,7 @@ def _device_busy_share(trk, frames):
     by_name = {}
     for e in dev_events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return len(iv), busy * 1e-6, wall, top
+    return len(iv), busy * 1e-6, sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
 
 
 def phase6_tracker(dev, seq):
@@ -492,24 +554,28 @@ def phase6_tracker(dev, seq):
     # n_features 1500, n_levels 8; loop closing off); other fields default
     cfg = TrackerConfig(n_features=1500, n_levels=8, enable_loop_closing=False)
     trk = MonocularTracker(seq.K, seq.wh, cfg, device=dev)
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    prof_t = []
+
+    def profile_frames(f):  # frames PROFILED_FRAMES run under the profiler
+        if f == PROFILED_FRAMES.start - 1:
+            prof.start()
+            prof_t.append(time.perf_counter())
+        elif f == PROFILED_FRAMES.stop - 1:
+            prof_t.append(time.perf_counter())
+            prof.stop()
+
     profiler.reset()
     profiler.enable()
-    torch.cuda.synchronize()
     hk.edt_launches = 0
-    ms, kind = [], []
-    t_all = time.perf_counter()
-    for f, g in enumerate(frames):
-        was = trk.state
-        t0 = time.perf_counter()
-        out = trk.track(g)
-        torch.cuda.synchronize()
-        ms.append(1e3 * (time.perf_counter() - t0))
-        kind.append("lost" if out is None else "init" if was == "NOT_INITIALIZED"
-                    else "kf" if trk.last_kf_frame_id == f else "tracked")
-    traj = trk.final_trajectory()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t_all
+    ms, kind, traj, _ = drive(trk, [(g,) for g in frames], after_frame=profile_frames)
     launches = hk.edt_launches
+    # frames/s and the per-frame times leave out the profiled frames
+    timed_frames = [f for f in range(N) if f not in PROFILED_FRAMES]
+    wall = 1e-3 * sum(ms[f] for f in timed_frames)
+    ms = [ms[f] for f in timed_frames]
+    kind_all, kind = kind, [kind[f] for f in timed_frames]
     profiler.disable()
     spans = profiler.aggregated()
     profiler.reset()
@@ -518,13 +584,14 @@ def phase6_tracker(dev, seq):
     ate = _scaled_ate(traj, truth)
     ate_tracked = _scaled_ate(trk.trajectory, truth)
     n_kf, n_mp = int(trk.map.kf_valid.sum()), int(trk.map.mp_valid.sum())
-    init = kind.index("init") if "init" in kind else None
+    init = kind_all.index("init") if "init" in kind_all else None
     med = lambda k: statistics.median([t for t, c in zip(ms, kind) if c == k]) if k in kind else float("nan")  # noqa: E731
     mean = lambda k: statistics.mean([t for t, c in zip(ms, kind) if c == k]) if k in kind else float("nan")  # noqa: E731
     log(f"[tracker] {N} frames {seq.wh[0]}x{seq.wh[1]}, 1500 features x 8 levels: initialized at frame "
         f"{init}; tracked {len(tracked)}/{N}; keyframes {n_kf}; map points {n_mp}; scaled ATE "
         f"{ate:.4f} m (final trajectory), {ate_tracked:.4f} m (as tracked)")
-    log(f"[tracker] {N / wall:.3f} frames/s of track() ({wall:.2f} s, host clock, synchronized per "
+    log(f"[tracker] {len(timed_frames) / wall:.3f} frames/s of track() ({wall:.2f} s over the "
+        f"{len(timed_frames)} frames outside the profiled ones, host clock, synchronized per "
         f"frame); tracked non-keyframe frames: median {med('tracked'):.2f} ms, mean "
         f"{mean('tracked'):.2f} ms ({kind.count('tracked')}); keyframe frames: median {med('kf'):.2f} ms, "
         f"mean {mean('kf'):.2f} ms ({kind.count('kf')}); untracked frames {kind.count('lost')}")
@@ -537,15 +604,13 @@ def phase6_tracker(dev, seq):
         "queueing; local BA = kf.ba_dispatch + ba.fold")
     log(f"[tracker] EDT launches during the tracker run: {launches} (its path runs no hand kernel)")
 
-    # device busy share: a second tracker, 6 frames profiled after 20
-    trk2 = MonocularTracker(seq.K, seq.wh, cfg, device=dev)
-    for g in frames[:20]:
-        trk2.track(g)
-    n_ev, busy, pwall, top = _device_busy_share(trk2, frames[20:26])
-    if n_ev:
-        log(f"[tracker] device busy share over frames 20-25 under torch.profiler: "
-            f"{100 * busy / pwall:.1f}% ({busy * 1e3:.1f} ms busy of {pwall * 1e3:.1f} ms wall, "
-            f"{n_ev} device events)")
+    assert len(prof_t) == 2, f"frames {PROFILED_FRAMES} lie outside the {N}-frame run"
+    n_events, busy, top = busy_share(prof)
+    prof_wall = prof_t[1] - prof_t[0]
+    if n_events:
+        log(f"[tracker] device busy share over frames {PROFILED_FRAMES.start}-{PROFILED_FRAMES.stop - 1} "
+            f"under torch.profiler: {100 * busy / prof_wall:.1f}% ({busy * 1e3:.1f} ms busy of "
+            f"{prof_wall * 1e3:.1f} ms wall, {n_events} device events)")
         log("[tracker] device time by kernel over those frames: "
             + "; ".join(f"{name[:60]} {us / 1e3:.1f} ms" for name, us in top))
     else:
@@ -558,7 +623,7 @@ def phase6_tracker(dev, seq):
 
 
 def phase7_tracker_card_vs_cpu(dev):
-    from cube_slam_tpu_torch.slam.system import TrackerConfig
+    from cube_slam_tpu_torch.slam.system import MonocularTracker, TrackerConfig
     from cube_slam_tpu_torch.slam.tracking import evaluate_ate_scaled
     from cube_slam_tpu_torch.utils import synth
 
@@ -570,7 +635,7 @@ def phase7_tracker_card_vs_cpu(dev):
                         min_init_matches=80, enable_loop_closing=False)
     runs = []
     for device in (dev, dev, "cpu"):
-        trk = _always_fold_tracker()(K, (320, 240), cfg, device=device)
+        trk = _always_fold(MonocularTracker)(K, (320, 240), cfg, device=device)
         for g in frames:
             trk.track(g)
         runs.append((trk.final_trajectory(), int(trk.map.kf_valid.sum()), int(trk.map.mp_valid.sum())))
@@ -680,24 +745,10 @@ def phase8_object_tracker(dev, seq):
     object_ba.local_ba_objects_two_stage = kept
     profiler.reset()
     profiler.enable()
-    ms, kind, promoted = [], [], set()
+    promoted = set()
     try:
-        torch.cuda.synchronize()
         hk.edt_launches = 0
-        t_all = time.perf_counter()
-        for f, (g, boxes, lines) in enumerate(inputs):
-            was = trk.state
-            t0 = time.perf_counter()
-            out = trk.track(g, bboxes_2d=boxes, lines=lines)
-            torch.cuda.synchronize()
-            ms.append(1e3 * (time.perf_counter() - t0))
-            kind.append("lost" if out is None else "init" if was == "NOT_INITIALIZED"
-                        else "kf" if trk.last_kf_frame_id == f else "tracked")
-            st = trk.objects.store
-            promoted |= {(int(o), int(st.gen[o])) for o in np.where(st.valid)[0]}
-        traj = trk.final_trajectory()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t_all
+        ms, kind, traj, wall = drive(trk, inputs, after_frame=_promoted_into(trk, promoted))
         launches = hk.edt_launches
     finally:
         object_ba.local_ba_objects_two_stage = solve
@@ -802,15 +853,12 @@ def phase9_object_card_vs_cpu(dev):
     from cube_slam_tpu_torch.slam.system import ObjectSlamTracker, TrackerConfig
     from cube_slam_tpu_torch.slam.tracking import evaluate_ate_scaled
 
-    class AlwaysFold(ObjectSlamTracker):
-        def _apply_pending_map(self, only_if_ready=False):
-            return super()._apply_pending_map(only_if_ready=False)
-
+    AlwaysFold = _always_fold(ObjectSlamTracker)
     frames, boxes, lines, poses, scene, K = _object_gate()
     cfg = TrackerConfig(n_features=800, n_levels=3, max_kf=24, max_mp=4096, min_init_kps=80, min_init_matches=80,
                         match_radius_motion=20.0, enable_loop_closing=False)
 
-    def drive(trk, start):
+    def run_from(trk, start):
         last = {}  # each landmark (slot, generation) -> its centre and half-scale on its last frame alive
         for g, bb, ln in list(zip(frames, boxes, lines))[start:]:
             trk.track(g, bboxes_2d=bb, lines=ln)
@@ -833,8 +881,8 @@ def phase9_object_card_vs_cpu(dev):
         cpu.track(g, bboxes_2d=bb, lines=ln)
     assert cpu.state == "OK", "the object gate did not initialize by frame 9 on the CPU"
     copies = [_carry(cpu, AlwaysFold, d) for d in (dev, dev, "cpu")]
-    c = drive(cpu, OBJECT_GATE_INIT + 1)
-    g, g2, cc = (drive(t, OBJECT_GATE_INIT + 1) for t in copies)
+    c = run_from(cpu, OBJECT_GATE_INIT + 1)
+    g, g2, cc = (run_from(t, OBJECT_GATE_INIT + 1) for t in copies)
     same = all((a is None and b is None) or np.array_equal(a, b) for (_, a), (_, b) in zip(c["traj"], cc["traj"]))
     assert same and all(np.array_equal(a, b) for a, b in zip(c["store"], cc["store"])), \
         "a CPU copy of the CPU tracker did not repeat it (the carry is incomplete)"
@@ -1091,25 +1139,11 @@ def phase10a_loop_run(dev):
     det.detect_cuboid = counted
     profiler.reset()
     profiler.enable()
-    ms, kind, promoted = [], [], set()
+    promoted = set()
     try:
         with LoopClosures(trk) as closures:
-            torch.cuda.synchronize()
             hk.edt_launches = 0
-            t_all = time.perf_counter()
-            for f, (g, boxes, lines) in enumerate(inputs):
-                was = trk.state
-                t0 = time.perf_counter()
-                out = trk.track(g, bboxes_2d=boxes, lines=lines)
-                torch.cuda.synchronize()
-                ms.append(1e3 * (time.perf_counter() - t0))
-                kind.append("lost" if out is None else "init" if was == "NOT_INITIALIZED"
-                            else "kf" if trk.last_kf_frame_id == f else "tracked")
-                st = trk.objects.store
-                promoted |= {(int(o), int(st.gen[o])) for o in np.where(st.valid)[0]}
-            traj = trk.final_trajectory()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t_all
+            ms, kind, traj, wall = drive(trk, inputs, after_frame=_promoted_into(trk, promoted))
             launches = hk.edt_launches
         spans_a = _spans(LOOP_SPANS + ("obj.detect", "obj.associate", "obj.ba", "kf.total"))
     finally:
@@ -1269,6 +1303,192 @@ def phase10c_loop_card_vs_cpu(dev):
     assert repeat, "two card runs of the loop path differ"
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the depth inputs
+# ---------------------------------------------------------------------------
+
+def depth_sequences(rgbd_frames=SLICE_FRAMES, stereo_frames=STEREO_FRAMES):
+    """11A's and 11B's inputs: ((gray, depth) per frame, truth Twc, K) of the
+    RGBD orbit, and ((left, right) per frame, truth Twc, K) of the stereo
+    orbit. Grey levels are rounded, as phase 6's frames are."""
+    from cube_slam_tpu_torch.utils import synth
+
+    seq = synth_sequence(rgbd_frames, SLICE_WH)
+    rgbd = []
+    for f in range(rgbd_frames):
+        img, depth = seq.scene.render(seq.poses[f], seq.K, wh=seq.wh, return_depth=True)
+        rgbd.append((np.round(img).astype(np.float32), depth))
+    sseq = synth.SynthSequence(stereo_frames, K=KITTI_K, wh=KITTI_WH)
+    stereo = []
+    for Twc_l in sseq.poses:
+        Twc_r = Twc_l.copy()
+        Twc_r[:3, 3] = Twc_l[:3, 3] + Twc_l[:3, :3] @ np.array([KITTI_BASELINE, 0.0, 0.0])
+        stereo.append(tuple(np.round(sseq.scene.render(T, sseq.K, wh=sseq.wh)).astype(np.float32)
+                            for T in (Twc_l, Twc_r)))
+    return (rgbd, seq.poses, seq.K), (stereo, sseq.poses, sseq.K)
+
+
+def metric_ate(traj, truth):
+    """Unaligned metric ATE (m): the estimated camera centres in the world of
+    the first tracked frame, mapped by that frame's truth pose
+    (tests/test_rgbd_stereo.py:35-38)."""
+    est = [(f, np.linalg.inv(T.astype(np.float64))) for f, T in traj if T is not None]
+    if not est:
+        return float("nan")
+    G = truth[est[0][0]]
+    d = np.stack([(G @ T)[:3, 3] - truth[f][:3, 3] for f, T in est])
+    return float(np.sqrt((d * d).sum(axis=1).mean()))
+
+
+def _depth_run(trk, inputs, truth, tag):
+    """Drive a depth tracker over `inputs` on the card; print what 11A and
+    11B print and return (tracked frames, ATE)."""
+    from cube_slam_tpu_torch.ops import hopper_kernels as hk
+    from cube_slam_tpu_torch.utils import profiler
+
+    N = len(inputs)
+    ratio_calls, transfers = [0], [0]
+    ratio = trk._kf_map_ratio
+
+    def counted(feats):
+        # host reads the ratio makes: the packed features and the associations
+        if feats is not None and trk._pending_depth is not None:
+            ratio_calls[0] += 1
+            transfers[0] += int(feats._xy is None) + int(feats._mp is None and feats._mp_dev is not None)
+        return ratio(feats)
+
+    trk._kf_map_ratio = counted
+    profiler.reset()
+    profiler.enable()
+    try:
+        hk.edt_launches = 0
+        ms, kind, traj, wall = drive(trk, inputs)
+        launches = hk.edt_launches
+        spans = profiler.aggregated()
+    finally:
+        profiler.disable()
+        profiler.reset()
+        trk._kf_map_ratio = ratio
+    tracked = [f for f, T in traj if T is not None]
+    ate, ate_tracked = metric_ate(traj, truth), metric_ate(trk.trajectory, truth)
+    med = lambda k: statistics.median([t for t, c in zip(ms, kind) if c == k]) if k in kind else float("nan")  # noqa: E731
+    log(f"[{tag}] initialized at frame {kind.index('init') if 'init' in kind else None}; tracked "
+        f"{len(tracked)}/{N}; keyframes {int(trk.map.kf_valid.sum())}; map points {int(trk.map.mp_valid.sum())}; "
+        f"unaligned metric ATE {ate:.4f} m (final trajectory), {ate_tracked:.4f} m (as tracked); loops closed "
+        f"{trk.loops_closed}")
+    log(f"[{tag}] {N / wall:.3f} frames/s of track() ({wall:.2f} s, host clock, synchronized per frame); "
+        f"tracked non-keyframe frames: median {med('tracked'):.2f} ms ({kind.count('tracked')}); keyframe "
+        f"frames: median {med('kf'):.2f} ms ({kind.count('kf')}); untracked frames {kind.count('lost')}")
+    names = sorted(k for k in spans if k.startswith("kf.")) + ["ba.fold", "track.dispatch", "track.result_read"]
+    log(f"[{tag}] split (total ms / calls): " + "; ".join(
+        f"{k} {spans[k][0]:.1f}/{spans[k][4]}" for k in names if k in spans))
+    log(f"[{tag}] host transfers made by _kf_map_ratio: {transfers[0]} in {ratio_calls[0]} calls "
+        f"({transfers[0] / max(ratio_calls[0], 1):.2f} per tracked frame: the packed features and the "
+        f"associations after the final pose step)")
+    log(f"[{tag}] EDT launches: {launches} (the depth trackers detect no cuboids)")
+    assert launches == 0
+    return tracked, ate
+
+
+def phase11a_rgbd(dev, rgbd):
+    from cube_slam_tpu_torch.slam.system import RgbdTracker, TrackerConfig
+
+    frames, truth, K = rgbd
+    H, W = frames[0][0].shape
+    # the repo's TUM preset (cube_slam_tpu/config.py: 1500 features x 8
+    # levels; max_kf 96, max_mp 12,288); loop closing at its default (on)
+    cfg = TrackerConfig(n_features=1500, n_levels=8, max_kf=96, max_mp=12288)
+    trk = RgbdTracker(K, (W, H), cfg, depth_max=RGBD_DEPTH_MAX, device=dev)
+    log(f"[rgbd] {len(frames)} frames {W}x{H}, TUM intrinsics, 1500 features x 8 levels, depth_max "
+        f"{RGBD_DEPTH_MAX} m, rendered depth")
+    tracked, ate = _depth_run(trk, frames, truth, "rgbd")
+    assert len(tracked) >= DEPTH_MIN_TRACKED * len(frames), f"tracked only {len(tracked)}/{len(frames)}"
+    assert np.isfinite(ate) and ate < RGBD_ATE_MAX, f"metric ATE {ate}"
+
+
+def phase11b_stereo(dev, stereo):
+    from cube_slam_tpu_torch.ops import stereo as stereo_ops
+    from cube_slam_tpu_torch.slam.system import StereoTracker, TrackerConfig
+
+    frames, truth, K = stereo
+    H, W = frames[0][0].shape
+    # KITTI 00-02 (cube_slam_tpu/config.py kitti_config: 3000 features x 8
+    # levels), the KITTI stereo baseline and depth range
+    cfg = TrackerConfig(n_features=3000, n_levels=8, max_kf=96, max_mp=12288)
+    trk = StereoTracker(K, (W, H), KITTI_BASELINE, cfg, depth_max=STEREO_DEPTH_MAX, device=dev)
+    log(f"[stereo] {len(frames)} frame pairs {W}x{H}, KITTI intrinsics, baseline {KITTI_BASELINE} m, 3000 "
+        f"features x 8 levels, depth_max {STEREO_DEPTH_MAX} m")
+    match = stereo_ops.stereo_match_keypoints
+    calls = []
+
+    def timed_match(*a, **k):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = match(*a, **k)
+        e1.record()
+        calls.append((e0, e1, out[2]))
+        return out
+
+    stereo_ops.stereo_match_keypoints = timed_match
+    try:
+        tracked, ate = _depth_run(trk, frames, truth, "stereo")
+    finally:
+        stereo_ops.stereo_match_keypoints = match
+    torch.cuda.synchronize()
+    ms = [e0.elapsed_time(e1) for e0, e1, _ in calls]
+    n = [int(m.sum()) for _, _, m in calls]
+    log(f"[stereo] stereo_match_keypoints: median {statistics.median(ms):.3f} ms per frame (CUDA events, "
+        f"min {min(ms):.3f}, max {max(ms):.3f}); matched keypoints per frame: median "
+        f"{statistics.median(n)}, min {min(n)}, max {max(n)}")
+    assert len(calls) == len(frames)
+    assert len(tracked) >= DEPTH_MIN_TRACKED * len(frames), f"tracked only {len(tracked)}/{len(frames)}"
+    assert np.isfinite(ate) and ate < STEREO_ATE_MAX, f"metric ATE {ate}"
+
+
+def _depth_gate(cls, device, frames, **kw):
+    """One of tests/test_rgbd_stereo.py's gates through the port's `cls` on
+    `device`, its local-BA fold forced synchronous."""
+    from cube_slam_tpu_torch.slam.system import TrackerConfig
+
+    cfg = TrackerConfig(n_features=600, n_levels=3, max_kf=24, max_mp=4096, min_inliers_local=15)
+    K = np.array([[320.0, 0, 160], [0, 320.0, 120], [0, 0, 1]], dtype=np.float32)
+    trk = _always_fold(cls)(K, (320, 240), config=cfg, device=device, **kw)
+    for pair in frames:
+        trk.track(*pair)
+    return trk.trajectory, sorted(int(trk.map.kf_frame_id[k]) for k in trk.map.kf_ids())
+
+
+def phase11c_depth_card_vs_cpu(dev):
+    from cube_slam_tpu_torch.slam.system import RgbdTracker, StereoTracker
+    from cube_slam_tpu_torch.utils import synth
+
+    scene = synth.RoomScene(seed=3)
+    K = np.array([[320.0, 0, 160], [0, 320.0, 120], [0, 0, 1]], dtype=np.float32)
+    poses = synth.camera_path(40)[:10]
+    rgbd = [scene.render(P, K, wh=(320, 240), return_depth=True) for P in poses]
+    scene = synth.RoomScene(seed=4)
+    stereo = []
+    for Twc_l in synth.camera_path(40)[:8]:
+        Twc_r = Twc_l.copy()
+        Twc_r[:3, 3] = Twc_l[:3, 3] + Twc_l[:3, :3] @ np.array([0.12, 0.0, 0.0])
+        stereo.append((scene.render(Twc_l, K, wh=(320, 240)), scene.render(Twc_r, K, wh=(320, 240))))
+    for name, cls, frames, kw in (("rgbd", RgbdTracker, rgbd, dict(depth_max=12.0)),
+                                  ("stereo", StereoTracker, stereo, dict(baseline=0.12, depth_max=15.0))):
+        (tg, kg), (tg2, kg2), (tc, kc) = (_depth_gate(cls, d, frames, **kw) for d in (dev, dev, "cpu"))
+        fg = [f for f, T in tg if T is not None]
+        fc = [f for f, T in tc if T is not None]
+        assert fg == fc, f"{name}: tracked frames differ: card {fg}, CPU {fc}"
+        assert kg == kc, f"{name}: keyframe frames differ: card {kg}, CPU {kc}"
+        gap = max(float(np.abs(a - b).max()) for (_, a), (_, b) in zip(tg, tc) if a is not None)
+        repeat = kg == kg2 and all((a is None and b is None) or np.array_equal(a, b)
+                                   for (_, a), (_, b) in zip(tg, tg2))
+        log(f"[depth-small] {name}, {len(frames)} frames 320x240 on the card and on the CPU: tracked "
+            f"{fg[0]}-{fg[-1]} ({len(fg)}) and keyframes at frames {kg} on both; poses within {gap:.3g} "
+            f"(bound {DEPTH_POSE_TOL}); two card runs bit-identical: {repeat}")
+        assert gap <= DEPTH_POSE_TOL, f"{name}: poses differ card vs CPU by {gap}"
+        assert repeat, f"{name}: two card runs differ"
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1292,7 +1512,11 @@ def main():
     trk, launches_loop = timed("phase 10 A", phase10a_loop_run, dev)
     timed("phase 10 B", phase10b_injected_loop, trk)
     timed("phase 10 C", phase10c_loop_card_vs_cpu, dev)
-    log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s")
+    rgbd, stereo = timed("phase 11 inputs", depth_sequences)
+    timed("phase 11 A", phase11a_rgbd, dev, rgbd)
+    timed("phase 11 B", phase11b_stereo, dev, stereo)
+    timed("phase 11 C", phase11c_depth_card_vs_cpu, dev)
+    log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s (limit 1200 s)")
 
     log(json.dumps({"kernels": [{
         "name": "edt_l2",

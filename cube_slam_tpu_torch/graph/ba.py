@@ -66,15 +66,13 @@ def robust_rho(chi2):
     return torch.where(e <= HUBER_MONO, chi2, 2 * HUBER_MONO * e - HUBER_MONO**2)
 
 
-def _cholesky_solve(A, b, reject_failed=True):
-    """Batched solve; NaN where the factor failed (graph/lm.py explains),
-    unless reject_failed=False: then the step of a failed factor is kept
-    (torch leaves the unfactored block of L as it was, so the step is
-    finite), as local_ba_points does by default (ROADMAP queue 3)."""
+def _cholesky_solve(A, b):
+    """Batched solve; NaN where the factor failed (graph/lm.py explains).
+    torch leaves the unfactored block of L as it was, so the step of a
+    failed factor would be finite; XLA's NaN factor makes every LM of the
+    JAX package reject it, and the NaN here does the same."""
     L, info = torch.linalg.cholesky_ex(A)
     x = torch.cholesky_solve(b[..., None], L)[..., 0]
-    if not reject_failed:
-        return x
     return torch.where((info == 0)[..., None], x, torch.nan)
 
 
@@ -238,16 +236,11 @@ def local_ba_points(
     pair_e2=None,  # system then assembles sparsely; e2 < 0 is padding
     num_iters: int = 5,
     schur_window: int = 0,
-    reject_failed: bool = False,
 ):
     """Joint camera-point BA: monocular reprojection edges, plus an
-    optional per-edge depth residual row (z_pred - z_meas) * z_si.
-
-    reject_failed=True rejects the step of a failed Cholesky factor of the
-    reduced camera system, as XLA's NaN factor makes JAX's LM do; the
-    default keeps that (finite) step, a departure from JAX that the
-    tracker's local BA still takes (ROADMAP queue 3). The global BA
-    rejects.
+    optional per-edge depth residual row (z_pred - z_meas) * z_si. The step
+    of a failed Cholesky factor of the reduced camera system is rejected,
+    as XLA's NaN factor makes JAX's LM do.
 
     The reduced camera system assembles from the dense (Kf, P) W grid by
     default (the tracker's), from an edge-pair list when `pair_e1/e2` are
@@ -259,19 +252,19 @@ def local_ba_points(
     Kf = kf_tcw.shape[0]
     P = pts.shape[0]
     E = obs_kf.shape[0]
-    dev = pts.device
+    dev, dt = pts.device, pts.dtype
     obs_kf = obs_kf.to(torch.int64)
     obs_pt = obs_pt.to(torch.int64)
     if obs_z is None:
-        obs_z = torch.zeros((E,), dtype=torch.float32, device=dev)
+        obs_z = torch.zeros((E,), dtype=dt, device=dev)
     if obs_z_si is None:
-        obs_z_si = torch.zeros((E,), dtype=torch.float32, device=dev)
-    valid_f = obs_valid.to(torch.float32)
+        obs_z_si = torch.zeros((E,), dtype=dt, device=dev)
+    valid_f = obs_valid.to(dt)
 
-    cam_mask = (~kf_fixed).to(torch.float32)  # (Kf,)
-    pt_mask = pt_valid.to(torch.float32)
-    eye3 = torch.eye(3, dtype=torch.float32, device=dev)
-    eye6 = torch.eye(6, dtype=torch.float32, device=dev)
+    cam_mask = (~kf_fixed).to(dt)  # (Kf,)
+    pt_mask = pt_valid.to(dt)
+    eye3 = torch.eye(3, dtype=dt, device=dev)
+    eye6 = torch.eye(6, dtype=dt, device=dev)
 
     if schur_window > 0 and pair_e1 is None:
         sort_key = torch.where(obs_valid, obs_pt, P)
@@ -341,7 +334,7 @@ def local_ba_points(
             WH = W_blocks[sched_order] @ Hinv_e             # (E, 6, 3)
             k1 = obs_kf[sched_order]
             idxs = torch.arange(E, device=dev)
-            S_flat = torch.zeros((Kf * Kf, 6, 6), dtype=torch.float32, device=dev)
+            S_flat = torch.zeros((Kf * Kf, 6, 6), dtype=dt, device=dev)
             for d in range(schur_window):
                 j = torch.clamp(idxs + d, 0, E - 1)
                 same = (sched_pt == sched_pt[j]) & (sched_pt < P) & (idxs + d < E)
@@ -384,7 +377,7 @@ def local_ba_points(
         S_f = (S.permute(0, 2, 1, 3).reshape(Kf * 6, Kf * 6) * cm[:, None] * cm[None, :]
                + torch.diag(1.0 - cm))
         rhs_f = rhs.reshape(-1) * cm
-        dc = _cholesky_solve(S_f, rhs_f, reject_failed=reject_failed) * cm
+        dc = _cholesky_solve(S_f, rhs_f) * cm
         dc_b = dc.reshape(Kf, 6)
 
         # back-substitute points: dp = Hpp^-1 (-bp - W^T dc)
@@ -393,7 +386,7 @@ def local_ba_points(
         dp = torch.einsum("pij,pj->pi", Hpp_inv, -bp - WT_dc) * pt_mask[:, None]
         return geo.se3_exp(dc_b) @ kf_tcw, pts + dp
 
-    lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
+    lam = torch.tensor(1e-4, dtype=dt, device=dev)
     cost = robust_cost(kf_tcw, pts)
     for _ in range(num_iters):
         new_tcw, new_pts = lm_step(kf_tcw, pts, lam)

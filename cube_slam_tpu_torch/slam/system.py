@@ -1,7 +1,8 @@
 """Monocular SLAM system — the host loop over the per-frame device steps.
 
-PyTorch counterpart of cube_slam_tpu/slam/system.py's MonocularTracker and
-ObjectSlamTracker (the tracker with cuboid object landmarks), the
+PyTorch counterpart of cube_slam_tpu/slam/system.py's MonocularTracker,
+its depth inputs RgbdTracker and StereoTracker, and ObjectSlamTracker (the
+tracker with cuboid object landmarks), the
 re-design of System/Tracking/LocalMapping (orb_object_slam/src/System.cc,
 Tracking.cc, LocalMapping.cc) in the reference's `parallel_mapping=false`
 configuration (Tracking.cc:775-780): mapping runs inline after each
@@ -1068,10 +1069,9 @@ class MonocularTracker:
         m.mp_min_dist[uniq] = m.mp_max_dist[uniq] / (trk.SCALE_FACTOR ** (self.cfg.n_levels - 1))
 
     # ------------------------------------------------------------------
-    def _local_ba(self, local_kfs, fixed, pin_gauge=True, reject_failed=False):
+    def _local_ba(self, local_kfs, fixed, pin_gauge=True):
         """Synchronous local BA (initialization, global BA)."""
-        self._local_ba_apply(self._local_ba_dispatch(local_kfs, fixed, pin_gauge=pin_gauge,
-                                                     reject_failed=reject_failed))
+        self._local_ba_apply(self._local_ba_dispatch(local_kfs, fixed, pin_gauge=pin_gauge))
 
     def _apply_pending_map(self, only_if_ready=False):
         """Fold the in-flight local BA into the map: at the start of every
@@ -1096,7 +1096,7 @@ class MonocularTracker:
                 self.last_Tcw = (T_rel @ self.map.kf_tcw[ref].astype(np.float64)).astype(np.float32)
         self._bump_map()
 
-    def _local_ba_dispatch(self, local_kfs, fixed, pin_gauge=True, reject_failed=False):
+    def _local_ba_dispatch(self, local_kfs, fixed, pin_gauge=True):
         cfg = self.cfg
         m = self.map
         kfs = list(dict.fromkeys(list(local_kfs) + list(fixed)))
@@ -1152,8 +1152,7 @@ class MonocularTracker:
             self._t(obs_kf), self._t(obs_pt), self._t(obs_uv), self._t(obs_si),
             torch.ones(E, dtype=torch.bool, device=self.device), self._t(kf_fixed),
             torch.ones(len(mp_set), dtype=torch.bool, device=self.device),
-            obs_z=self._t(obs_z), obs_z_si=self._t(obs_z_si), num_iters=cfg.local_ba_iters,
-            reject_failed=reject_failed)
+            obs_z=self._t(obs_z), obs_z_si=self._t(obs_z_si), num_iters=cfg.local_ba_iters)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
@@ -1206,14 +1205,12 @@ class MonocularTracker:
         """GlobalBundleAdjustemnt (Optimizer.cc:57-64): BA over every valid
         keyframe and map point, the first keyframe fixed, the scale gauge
         free. The JAX package's `num_iters` argument is unused there and is
-        left out; the iterations are cfg.local_ba_iters. A step whose
-        Cholesky factor failed is rejected, as in JAX (the inline local BA
-        still keeps it: ROADMAP queue 3)."""
+        left out; the iterations are cfg.local_ba_iters."""
         self._apply_pending_map()
         kfs = [int(k) for k in self.map.kf_ids()]
         if len(kfs) < 2:
             return
-        self._local_ba(kfs, fixed=[min(kfs)], pin_gauge=False, reject_failed=True)
+        self._local_ba(kfs, fixed=[min(kfs)], pin_gauge=False)
         self._bump_map()
 
     def _cull_keyframes(self, keep_latest=2, redundancy=0.9):
@@ -1291,6 +1288,178 @@ class MonocularTracker:
                 rec = by_fid.get(fid)
                 out.append((fid, rec if rec is not None else T))
         return out
+
+
+class RgbdTracker(MonocularTracker):
+    """TrackRGBD-equivalent: depth measurements replace the two-view
+    bootstrap and triangulation (StereoInitialization, Tracking.cc:783-850;
+    depth-backed map points in CreateNewKeyFrame). The scale is metric.
+
+    The keypoint depths are read on the host in numpy, as the JAX package
+    reads them, so they are bit for bit the same. Loop closing verifies a
+    free-scale Sim3 here too, as the JAX package does (ORB-SLAM2 fixes the
+    scale for depth input)."""
+
+    def __init__(self, K, img_wh, config=None, depth_max=8.0, init_Twc=None, device=None):
+        """init_Twc: optional pose of the FIRST camera in a gravity-aligned
+        world (the reference's InitToGround, Tracking.cc:110-143). When
+        given, the map world is that frame (z-up) instead of the first
+        camera."""
+        super().__init__(K, img_wh, config, device=device)
+        self.depth_max = depth_max
+        self._pending_depth = None
+        self.init_Tcw = (np_geo.inv_T(np.asarray(init_Twc, dtype=np.float64)).astype(np.float32)
+                         if init_Twc is not None else np.eye(4, dtype=np.float32))
+
+    def track(self, gray, depth=None):
+        """One frame and its (H, W) depth image in metres (0 = no depth)."""
+        self._pending_depth = depth
+        return super().track(gray)
+
+    def reset(self):
+        super().reset()
+        self._pending_depth = None
+
+    def _kf_map_ratio(self, feats):
+        """nMap/nTotal over close-depth keypoints (Tracking.cc:1452-1473):
+        keypoints with valid depth that already carry a map point against
+        all keypoints with valid depth. It reads the frame's keypoints and
+        its associations after the final pose step on the host: one
+        transfer of each per tracked frame, as in the JAX package."""
+        if feats is None or self._pending_depth is None:
+            return None
+        d = self._kp_depths(feats, self._pending_depth)
+        close = d > 0
+        n_total = int(close.sum())
+        if n_total < 10:
+            return None
+        n_map = int(((feats.mp >= 0) & close).sum())
+        return n_map / n_total
+
+    def _kp_depths(self, feats, depth_img):
+        """Bilinear depth at subpixel keypoint locations; where a corner of
+        the interpolation cell has no depth, the nearest pixel's (np.round,
+        halves to even). Host numpy, term for term the JAX package's."""
+        H, W = depth_img.shape
+        x = np.clip(feats.xy[:, 0], 0.0, W - 1.001)
+        y = np.clip(feats.xy[:, 1], 0.0, H - 1.001)
+        x0 = x.astype(int)
+        y0 = y.astype(int)
+        fx = x - x0
+        fy = y - y0
+        d00 = depth_img[y0, x0]
+        d01 = depth_img[y0, x0 + 1]
+        d10 = depth_img[y0 + 1, x0]
+        d11 = depth_img[y0 + 1, x0 + 1]
+        corners_ok = (d00 > 0.1) & (d01 > 0.1) & (d10 > 0.1) & (d11 > 0.1)
+        d_bil = (d00 * (1 - fx) * (1 - fy) + d01 * fx * (1 - fy)
+                 + d10 * (1 - fx) * fy + d11 * fx * fy)
+        # sparse depth (the stereo raster): the nearest pixel's value
+        d_near = depth_img[np.clip(np.round(y).astype(int), 0, H - 1),
+                           np.clip(np.round(x).astype(int), 0, W - 1)]
+        d = np.where(corners_ok, d_bil, d_near)
+        ok = feats.valid & (d > 0.1) & (d < self.depth_max)
+        return np.where(ok, d, 0.0).astype(np.float32)
+
+    def _backproject(self, feats, d, Tcw):
+        Kinv = np.linalg.inv(self.K.astype(np.float64))
+        uv1 = np.concatenate([feats.xy, np.ones((len(feats.xy), 1))], axis=1)
+        pc = (uv1 @ Kinv.T) * d[:, None]
+        Twc = np_geo.inv_T(Tcw.astype(np.float64))
+        return (pc @ Twc[:3, :3].T + Twc[:3, 3]).astype(np.float32)
+
+    def _fill_depth_points(self, feats, k, sel, ids, pts):
+        """Map points `ids` at the keypoints `sel` of keyframe k, at the
+        backprojected `pts` (one per keypoint)."""
+        m = self.map
+        m.mp_pos[ids] = pts[sel]
+        m.mp_valid[ids] = True
+        m.mp_desc[ids] = feats.desc[sel]
+        m.mp_level[ids] = feats.level[sel]
+        m.mp_first_kf[ids] = k
+        m.mp_nobs[ids] = 1
+        m.kf_kp_mp[k, sel] = ids
+        self._refresh_mp_geometry(ids)
+
+    def _try_initialize(self, feats):
+        if self._pending_depth is None:
+            return False
+        d = self._kp_depths(feats, self._pending_depth)
+        good = d > 0
+        if good.sum() < 50:
+            return False
+        kf0 = self._insert_keyframe_raw(feats, self.init_Tcw.copy(), self.frame_id)
+        self.map.kf_kp_depth[kf0, : len(d)] = d
+        pts = self._backproject(feats, d, self.init_Tcw)
+        ids = self.map.alloc_mps(int(good.sum()))
+        self._fill_depth_points(feats, kf0, np.where(good)[0][: len(ids)], ids, pts)
+        self.last_Tcw = self.init_Tcw.copy()
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.ref_kf = kf0
+        self.last_kf_frame_id = self.frame_id
+        # the host table replaces any device one
+        feats.mp = self.map.kf_kp_mp[kf0].copy()
+        self.last_frame = feats
+        self._bump_map()
+        return True
+
+    def _create_keyframe(self, feats, fid=None):
+        super()._create_keyframe(feats, fid=fid)
+        # the depth-backed points below may reuse erased map slots that the
+        # in-flight local BA still refers to: fold it first, waiting for it
+        self._apply_pending_map()
+        if self._pending_depth is None:
+            return
+        k = self.ref_kf
+        m = self.map
+        d = self._kp_depths(feats, self._pending_depth)
+        m.kf_kp_depth[k, : len(d)] = d
+        free = (m.kf_kp_mp[k, : len(feats.valid)] < 0) & (d > 0)
+        sel = np.where(free)[0]
+        if len(sel) == 0:
+            return
+        ids = m.alloc_mps(len(sel))
+        if len(ids) == 0:
+            logger.warning("map-point capacity exhausted; skipping depth-backed points for KF %d", k)
+            return
+        self._fill_depth_points(feats, k, sel[: len(ids)], ids, self._backproject(feats, d, m.kf_tcw[k]))
+        self._bump_map()
+
+
+class StereoTracker(RgbdTracker):
+    """TrackStereo-equivalent: rectified left/right pairs; per-keypoint
+    depth from batched row-band Hamming matching on the device
+    (ops/stereo.py, standing in for Frame::ComputeStereoMatches).
+
+    As in the JAX package, the depths are written into a host (H, W) image
+    at the keypoints' truncated pixels (the last write wins where two share
+    one), which the RGBD path reads back with its nearest-pixel fallback;
+    and the left image is extracted twice per frame, once for the stereo
+    match and once inside the tracking step."""
+
+    def __init__(self, K, img_wh, baseline, config=None, depth_max=20.0, device=None):
+        super().__init__(K, img_wh, config, depth_max=depth_max, device=device)
+        self.baseline = float(baseline)
+
+    def track(self, gray_left, gray_right=None):
+        from ..ops import stereo as stereo_ops
+
+        feats_l = self._extract(gray_left)
+        feats_r = self._extract(gray_right)
+        fl, fr = feats_l.dev, feats_r.dev
+        depth, _, _ = stereo_ops.stereo_match_keypoints(
+            fl["xy"], fl["desc"], fl["level"], fl["valid"],
+            fr["xy"], fr["desc"], fr["level"], fr["valid"],
+            np.float32(self.K[0, 0]), np.float32(self.baseline))
+        H = int(self.img_wh[1])
+        W = int(self.img_wh[0])
+        depth_img = np.zeros((H, W), dtype=np.float32)
+        xi = np.clip(feats_l.xy[:, 0].astype(int), 0, W - 1)
+        yi = np.clip(feats_l.xy[:, 1].astype(int), 0, H - 1)
+        depth_img[yi, xi] = depth.cpu().numpy()
+        # MonocularTracker.track, not RgbdTracker.track: the depth is set here
+        self._pending_depth = depth_img
+        return MonocularTracker.track(self, gray_left)
 
 
 class ObjectSlamTracker(MonocularTracker):

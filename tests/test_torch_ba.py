@@ -151,6 +151,30 @@ def test_local_ba_points_depth_rows_and_invalid_edges(branch):
     np.testing.assert_array_equal(p[3], j[3])
 
 
+@pytest.mark.parametrize("seed,n_kf", [(0, 4), (1, 4), (2, 3)])
+def test_local_ba_points_rejects_the_step_of_a_failed_factor(seed, n_kf):
+    """Every camera free, so the reduced camera system carries the 7-DoF
+    gauge: with lam = 1e-4 against entries ~1e6 it is not positive definite
+    in float32, and the factor fails in both packages. JAX's cho_solve
+    then gives NaN and its LM rejects the step; torch's partial factor gives
+    a finite step, which on these problems lowers the cost ~20x-3600x, so a
+    port that kept it would move every camera. One LM step: both must
+    return their inputs bit for bit, with the same cost (within 1e-3
+    relative) and inlier mask."""
+    tcw, pts, okf, opt, ouv = _scene(n_kf=n_kf, seed=seed)
+    rng = np.random.default_rng(100 + seed)
+    pts0 = (pts + 0.05 * rng.normal(size=pts.shape)).astype(np.float32)
+    E = len(okf)
+    args = (tcw, pts0, K_BA, okf.astype(np.int32), opt.astype(np.int32), ouv.astype(np.float32),
+            np.ones(E, np.float32), np.ones(E, bool), np.zeros(n_kf, bool), np.ones(len(pts), bool))
+    j = to_np(jba.local_ba_points(*[jnp.asarray(a) for a in args], num_iters=1))
+    p = to_np(tba.local_ba_points(*[t(a) for a in args], num_iters=1))
+    assert np.array_equal(j[0], tcw) and np.array_equal(j[1], pts0)
+    assert np.array_equal(p[0], tcw) and np.array_equal(p[1], pts0)
+    assert_close(p[2], j[2], atol=1e-3 * float(j[2]), what="cost")
+    np.testing.assert_array_equal(p[3], j[3])
+
+
 def test_make_schur_pairs_and_inv3():
     rng = np.random.default_rng(0)
     obs_pt = rng.integers(0, 20, 90)

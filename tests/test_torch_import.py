@@ -27,12 +27,13 @@ SLICE2 = ["ops.orb", "ops.matching", "utils.profiler", "utils.metrics", "slam.st
           "slam.initializer", "slam.pnp", "slam.tracking", "slam.loop_closing", "slam.system"]
 SLICE3 = ["ops.ransac", "slam.ground", "slam.kitti", "slam.objects", "graph.object_ba"]
 SLICE4 = ["slam.sim3", "slam.loop_closing", "utils.serialization"]
+SLICE5A = ["ops.stereo", "slam.system"]
 
 
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "cube_slam_tpu_torch.models.detector" in mods and len(mods) >= 26
-    assert not {"cube_slam_tpu_torch." + m for m in SLICE2 + SLICE3 + SLICE4} - set(mods)
+    assert not {"cube_slam_tpu_torch." + m for m in SLICE2 + SLICE3 + SLICE4 + SLICE5A} - set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -47,10 +48,11 @@ def test_every_module_imports_without_jax():
     assert out.stdout.strip() == "[]"
 
 
-@pytest.mark.parametrize("module", SLICE4)
+@pytest.mark.parametrize("module", SLICE4 + SLICE5A)
 def test_loop_slice_module_imports_alone_without_jax(module):
-    """Each module of the loop-closing slice, imported alone in a fresh
-    interpreter, pulls in neither JAX nor the JAX package."""
+    """Each module of the loop-closing slice and of the depth inputs,
+    imported alone in a fresh interpreter, pulls in neither JAX nor the JAX
+    package."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('cube_slam_tpu_torch.{module}')\n"
@@ -90,7 +92,8 @@ def _entry_point(name):
     """Each entry point built with no device argument."""
     from cube_slam_tpu_torch.models.detector import CuboidDetector
     from cube_slam_tpu_torch.slam.object_slam import ObjectSlamDemo, optimize_graph
-    from cube_slam_tpu_torch.slam.system import MonocularTracker, ObjectSlamTracker, TrackerConfig
+    from cube_slam_tpu_torch.slam.system import (MonocularTracker, ObjectSlamTracker, RgbdTracker, StereoTracker,
+                                                 TrackerConfig)
 
     if name == "ObjectSlamDemo":
         return ObjectSlamDemo(max_frames=8)
@@ -98,6 +101,10 @@ def _entry_point(name):
         return MonocularTracker(np.eye(3), (320, 240), TrackerConfig())
     if name == "ObjectSlamTracker":
         return ObjectSlamTracker(np.eye(3), (320, 240), TrackerConfig())
+    if name == "RgbdTracker":
+        return RgbdTracker(np.eye(3), (320, 240), TrackerConfig(), depth_max=8.0, init_Twc=np.eye(4))
+    if name == "StereoTracker":
+        return StereoTracker(np.eye(3), (320, 240), 0.12, TrackerConfig(), depth_max=20.0)
     if name == "CuboidDetector":
         return CuboidDetector()
     if name == "CuboidDetector.from_config":
@@ -108,8 +115,9 @@ def _entry_point(name):
                           np.ones(F, np.float32), np.ones(F, bool), eye, F, num_iters=1, max_frames=F)
 
 
-@pytest.mark.parametrize("name", ["ObjectSlamDemo", "MonocularTracker", "ObjectSlamTracker", "CuboidDetector",
-                                  "CuboidDetector.from_config", "optimize_graph"])
+@pytest.mark.parametrize("name", ["ObjectSlamDemo", "MonocularTracker", "ObjectSlamTracker", "RgbdTracker",
+                                  "StereoTracker", "CuboidDetector", "CuboidDetector.from_config",
+                                  "optimize_graph"])
 def test_entry_points_default_to_the_card(name):
     """Without a device the entry points run on the card: where there is
     one they land on it, and where there is none they raise instead of

@@ -35,6 +35,10 @@ from cube_slam_tpu_torch.slam import system as tsys
 from cube_slam_tpu_torch.slam.tracking import evaluate_ate_scaled
 
 CARRY_AFTER = 9  # the JAX tracker is carried into the port after this frame (its initialization)
+# m: the largest distance JAX's own landmark moves under a 1-ulp perturbation
+# of its state after frame 9, 2.9229 over 12 perturbations, rounded up
+# (tools/object_gate_spread.py)
+LANDMARK_SPREAD = 2.93
 
 
 def _store(trk):
@@ -170,7 +174,15 @@ def test_object_gate_from_the_carried_initialization(runs):
     keyframes on the same frames, map points within 2%, the same landmarks
     (one, alive at the end) at the scale floor within 5e-4, the scale flag,
     ATE within 0.01 m. The landmark's centre is where the rank-deficient
-    object BA leaves it: measured 0.6 m from JAX's; bound 1.5 m."""
+    object BA leaves it: measured 1.64 m from JAX's. Its bound is the
+    reference's own spread: JAX's landmark moves 0.38-2.92 m from where it
+    lands when JAX's state after frame 9 is moved by 1 ulp (12
+    perturbations, tools/object_gate_spread.py). The inline local BA's
+    reduced camera system is singular to float32 rounding there (both
+    packages' float64 builds agree to 1e-12; each float32 build is off
+    them by up to 6.8e-4 of its largest entry, its least eigenvalue 1.2-7.4
+    against entries ~2.8e7), so its factor fails on other LM steps in each
+    of those JAX runs, as it does in the port; bound 2.93 m."""
     j, c = runs["jax"], runs["carried"]
     assert c["tracked"] == j["tracked"]
     assert c["kf_frames"] == j["kf_frames"], (c["kf_frames"], j["kf_frames"])
@@ -179,7 +191,7 @@ def test_object_gate_from_the_carried_initialization(runs):
     assert np.array_equal(c["store"]["valid"], j["store"]["valid"])
     o = int(np.where(j["store"]["valid"])[0][0])
     assert np.abs(c["store"]["scale"][o] - j["store"]["scale"][o]).max() <= 5e-4
-    assert np.linalg.norm(c["store"]["pose"][o][:3, 3] - j["store"]["pose"][o][:3, 3]) <= 1.5
+    assert np.linalg.norm(c["store"]["pose"][o][:3, 3] - j["store"]["pose"][o][:3, 3]) <= LANDMARK_SPREAD
     assert abs(c["ate"] - j["ate"]) <= 0.01 and abs(c["ate_final"] - j["ate_final"]) <= 0.01
 
 

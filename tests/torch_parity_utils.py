@@ -95,11 +95,18 @@ def sync_fold_jax_tracker(cfg):
     this is the run it is held against."""
     from cube_slam_tpu.slam import system as jsys
 
-    class SyncFold(jsys.MonocularTracker):
+    return sync_fold(jsys.MonocularTracker)(GATE_A_K, (320, 240), jsys.TrackerConfig(**cfg))
+
+
+def sync_fold(cls):
+    """A subclass of either package's tracker class `cls` whose local-BA
+    fold is forced synchronous."""
+
+    class SyncFold(cls):
         def _apply_pending_map(self, only_if_ready=False):
             return super()._apply_pending_map(only_if_ready=False)
 
-    return SyncFold(GATE_A_K, (320, 240), jsys.TrackerConfig(**cfg))
+    return SyncFold
 
 
 def carry_tracker(jtrk, device="cpu"):
@@ -107,11 +114,22 @@ def carry_tracker(jtrk, device="cpu"):
     state.map_state_from_arrays), pose, motion model, reference keyframe,
     last frame with its kp->map-point table, keyframe database and the
     device visibility counters. Any in-flight local BA of the JAX tracker
-    must have been folded."""
+    must have been folded. A JAX RgbdTracker or StereoTracker becomes the
+    port's class of the same name, with its depth range, first pose,
+    baseline and pending depth image."""
+    from cube_slam_tpu.slam import system as jsys
     from cube_slam_tpu_torch.slam import system as tsys
 
     cfg = tsys.TrackerConfig(**vars(jtrk.cfg))
-    return _carry_base(tsys.MonocularTracker(jtrk.K, jtrk.img_wh, cfg, device=device), jtrk, device)
+    if not isinstance(jtrk, jsys.RgbdTracker):
+        return _carry_base(tsys.MonocularTracker(jtrk.K, jtrk.img_wh, cfg, device=device), jtrk, device)
+    if isinstance(jtrk, jsys.StereoTracker):
+        t = tsys.StereoTracker(jtrk.K, jtrk.img_wh, jtrk.baseline, cfg, depth_max=jtrk.depth_max, device=device)
+    else:
+        t = tsys.RgbdTracker(jtrk.K, jtrk.img_wh, cfg, depth_max=jtrk.depth_max, device=device)
+    t.init_Tcw = jtrk.init_Tcw.copy()
+    t._pending_depth = _copy(jtrk._pending_depth)
+    return _carry_base(t, jtrk, device)
 
 
 # The object gate: the orbit of the room box at 320x240 (uint8 frames), the
@@ -148,14 +166,9 @@ def sync_fold_jax_object_tracker(ground_Twc0, cfg=None, base=None):
     local-BA fold forced synchronous, on the object gate's camera."""
     from cube_slam_tpu.slam import system as jsys
 
-    base = base or jsys.ObjectSlamTracker
-
-    class SyncFold(base):
-        def _apply_pending_map(self, only_if_ready=False):
-            return super()._apply_pending_map(only_if_ready=False)
-
-    return SyncFold(GATE_A_K, (320, 240), jsys.TrackerConfig(**(cfg or OBJECT_GATE_CONFIG)),
-                    ground_Twc0=ground_Twc0)
+    return sync_fold(base or jsys.ObjectSlamTracker)(GATE_A_K, (320, 240),
+                                                     jsys.TrackerConfig(**(cfg or OBJECT_GATE_CONFIG)),
+                                                     ground_Twc0=ground_Twc0)
 
 
 def carry_object_tracker(jtrk, device="cpu"):
