@@ -94,6 +94,27 @@ Phases (any failure exits non-zero before a result is printed):
    gates of tests/test_rgbd_stereo.py (320x240) on the card twice and on
    the CPU, the fold forced synchronous: the same frames tracked and
    keyframes, poses within DEPTH_POSE_TOL, the two card runs bit-identical.
+12. the KITTI trackers, offline cuboid rows of the room box (tracklet ids,
+   the car prior = the box's half extents; no detector, so no EDT launch,
+   checked). A: KittiMonoTracker.track(left) over phase 11B's 40 left
+   images (1241x376, 3000 features x 8 levels, two-view initialization,
+   the object-depth scale anchor at each keyframe, ground recovery every 3
+   keyframes at the mount's height). B: KittiStereoTracker.track(left,
+   right) over the same 40 pairs at 11B's baseline and depth range. Each
+   prints frames tracked, keyframes, map points, the unaligned metric ATE
+   (aligned on the first tracked frame only) beside the similarity-aligned
+   one, the landmark against the true box and the prior, frames/s, the
+   median ms per tracked and keyframe frame and the obj.* / kitti.* spans
+   per keyframe; A also the anchor scales and the ground recoveries. C: the
+   two KITTI gates (tests/test_kitti_mode.py:37's 14 frames, bootstrapped
+   from the object's depth, and tests/test_rgbd_stereo.py:71's 10 pairs,
+   320x240, uint8 grey levels) through run_kitti_sequence /
+   run_kitti_stereo_sequence with output_prefix, on the card twice and on
+   the CPU: the same tracked frames and ground recoveries, the same first
+   anchor, keyframe and anchor counts, the second anchor and the written
+   files within KITTI_ENTRY_BOUNDS (how far 1-ulp perturbations move the
+   JAX package's own run: these runs fork on rounding), the two card runs
+   bit-identical; it prints both runs' cuboid rows.
 
 Each phase prints its seconds, and the last [time] line the whole run's
 against the 1,200 s limit.
@@ -164,8 +185,39 @@ STEREO_ATE_MAX = 0.2   # m, its stereo bound
 # 11C: tracked poses card vs CPU (entries of Tcw; the CPU parity tests hold
 # the port to JAX within 5e-3)
 DEPTH_POSE_TOL = 5e-3
-
-
+# phase 12
+KITTI_MONO_OBJECT_BOOTSTRAP = False  # 12A: two-view initialization
+# 12C: the two KITTI gates at 320x240 (tests/test_kitti_mode.py:37's mono
+# scene and tests/test_rgbd_stereo.py:71's stereo scene): camera, box half
+# extents, stereo baseline, tracker and ground configuration as the JAX
+# tests; tests/torch_parity_utils.py builds its KITTI gates from these
+KITTI_GATE_K = np.array([[320.0, 0, 160], [0, 320.0, 120], [0, 0, 1]], dtype=np.float32)
+KITTI_GATE_WH = (320, 240)
+KITTI_GATE_HALF = np.array([0.5, 0.35, 0.8], dtype=np.float32)
+KITTI_GATE_BASELINE = 0.12
+KITTI_GATE_MONO = dict(n_features=600, n_levels=3, max_kf=24, max_mp=4096, min_init_kps=80, min_init_matches=80,
+                       enable_loop_closing=False)
+KITTI_GATE_STEREO = dict(n_features=600, n_levels=3, max_kf=24, max_mp=4096, min_inliers_local=15)
+KITTI_GATE_GROUND = dict(nominal_height=1.4, every_kfs=3, min_points=12, inlier_thresh=0.03)
+# The gates through the entry points, against JAX's run on the CPU
+# (tests/test_torch_kitti_stereo.py) and card against CPU (12C): the radius
+# of JAX's 1-ulp spread in the same runs, the largest gap of any of 24
+# perturbed runs from its unperturbed one (tools/kitti_gate_spread.py
+# --gate mono-entry / stereo-entry --at keyframes): counts of keyframes and
+# anchors, the second anchor (relative), and in the written files the
+# camera centres (m), the rotation entries, the landmark's centre (m), its
+# yaw modulo pi and its half-scale (m). The mono landmark's orientation is
+# not determined by this gate (JAX's own runs put its yaw up to 1.06 rad
+# from its run, and JAX's landmark sits at Euler roll -1.42 rad where the
+# box's is 1.62), so its yaw is not bounded (None); the stereo half-scale's 1.04 m is the
+# object BA's gauge step, which rescales fixed-scale landmarks too (ROADMAP
+# queue 3).
+KITTI_ENTRY_BOUNDS = {
+    "mono": dict(keyframes=1, anchors=2, anchor=5.8e-6, centre=0.642, rotation=0.043, landmark=0.755, yaw=None,
+                 scale=0.136),
+    "stereo": dict(keyframes=1, anchors=0, anchor=0.0, centre=0.277, rotation=0.0545, landmark=0.502, yaw=0.13,
+                   scale=1.037),
+}
 def log(*a):
     print(*a, flush=True)
 
@@ -1489,6 +1541,299 @@ def phase11c_depth_card_vs_cpu(dev):
         assert repeat, f"{name}: two card runs differ"
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the KITTI trackers
+# ---------------------------------------------------------------------------
+
+KITTI_SPANS = ("obj.ingest", "obj.associate", "obj.ba", "kitti.anchor", "kitti.ground", "kf.total")
+
+
+def kitti_rows(scene, poses, K, wh, half, tid):
+    """Per frame the 13-column offline cuboid row [centre(3) yaw
+    half-scale(3) x y w h prob tid] of the scene's box in the local ground
+    frame of the first pose (the camera-to-ground mount held constant), or
+    an empty (0, 13) array where the box is out of view
+    (tests/test_kitti_mode.py:46-60)."""
+    T_obj, _ = scene.box_pose_scale()
+    rows = []
+    for P in poses:
+        bbox = scene.box_bbox_2d(P, K, wh=wh)
+        if bbox is None:
+            rows.append(np.zeros((0, 13)))
+            continue
+        pose_lg = poses[0] @ (np.linalg.inv(P) @ T_obj)
+        yaw = float(np.arctan2(pose_lg[1, 0], pose_lg[0, 0]))
+        rows.append(np.array([[pose_lg[0, 3], pose_lg[1, 3], pose_lg[2, 3], yaw, half[0], half[1], half[2],
+                               bbox[0], bbox[1], bbox[2], bbox[3], 0.9, float(tid)]]))
+    return rows
+
+
+def first_frame_ate(traj, truth):
+    """Unaligned metric ATE (m) with the worlds aligned on the first tracked
+    frame only: G = truth Twc of that frame times its estimated Tcw, scale 1
+    (tests/test_kitti_mode.py:23-34). Returns (ATE, G)."""
+    est = [(f, np.asarray(T, dtype=np.float64)) for f, T in traj if T is not None]
+    if len(est) < 2:
+        return float("nan"), np.eye(4)
+    G = truth[est[0][0]] @ est[0][1]
+    d = [(G @ np.linalg.inv(T))[:3, 3] - truth[f][:3, 3] for f, T in est[1:]]
+    return float(np.sqrt(np.mean(np.sum(np.square(d), axis=1)))), G
+
+
+def kitti_inputs(stereo):
+    """12A's and 12B's inputs from phase 11B's pairs: the scene and poses of
+    that orbit (SynthSequence renders lazily, so nothing is rendered again)
+    and the box's offline rows at KITTI's camera."""
+    from cube_slam_tpu_torch.utils import synth
+
+    frames, truth, K = stereo
+    sseq = synth.SynthSequence(len(frames), K=KITTI_K, wh=KITTI_WH)
+    assert np.array_equal(sseq.poses, truth)
+    _, half = sseq.scene.box_pose_scale()
+    return frames, truth, K, sseq.scene, half, kitti_rows(sseq.scene, truth, K, KITTI_WH, half, 1)
+
+
+def _kitti_run(trk, inputs, truth, scene, tag):
+    """Drive a KITTI tracker over `inputs` on the card; print its outcome,
+    speed and spans, and return (tracked frames, metric ATE, G)."""
+    from cube_slam_tpu_torch.ops import hopper_kernels as hk
+    from cube_slam_tpu_torch.utils import profiler
+
+    N = len(inputs)
+    profiler.reset()
+    profiler.enable()
+    try:
+        hk.edt_launches = 0
+        ms, kind, traj, wall = drive(trk, inputs)
+        launches = hk.edt_launches
+        spans = profiler.aggregated()
+    finally:
+        profiler.disable()
+        profiler.reset()
+    tracked = [f for f, T in traj if T is not None]
+    ate, G = first_frame_ate(traj, truth)
+    n_kf = int(trk.map.kf_valid.sum())
+    med = lambda k: statistics.median([t for t, c in zip(ms, kind) if c == k]) if k in kind else float("nan")  # noqa: E731
+    log(f"[{tag}] initialized at frame {kind.index('init') if 'init' in kind else None}; tracked "
+        f"{len(tracked)}/{N}; keyframes {n_kf}; map points {int(trk.map.mp_valid.sum())}; unaligned metric ATE "
+        f"{ate:.4f} m (final trajectory, aligned on the first tracked frame), similarity-aligned ATE "
+        f"{_scaled_ate(traj, truth):.4f} m; loops closed {trk.loops_closed}")
+    box_T, _ = scene.box_pose_scale()
+    st = trk.objects.store
+    for o in np.where(st.valid)[0]:
+        c = (G @ np.append(st.pose[o][:3, 3].astype(np.float64), 1.0))[:3]
+        log(f"[{tag}] landmark {o}: centre {np.linalg.norm(c - box_T[:3, 3]):.4f} m from the true box "
+            f"(aligned world), half-scale {np.round(st.scale[o], 4).tolist()} against the prior "
+            f"{np.round(trk.car_prior, 4).tolist()}")
+    log(f"[{tag}] {N / wall:.3f} frames/s of track() ({wall:.2f} s, host clock, synchronized per frame); "
+        f"tracked non-keyframe frames: median {med('tracked'):.2f} ms ({kind.count('tracked')}); keyframe "
+        f"frames: median {med('kf'):.2f} ms ({kind.count('kf')}); untracked frames {kind.count('lost')}")
+    log(f"[{tag}] spans (total ms / calls, ms per keyframe frame): " + "; ".join(
+        f"{k} {spans[k][0]:.1f}/{spans[k][4]}, {spans[k][0] / max(kind.count('kf'), 1):.1f}"
+        for k in KITTI_SPANS if k in spans))
+    log(f"[{tag}] EDT launches: {launches} (offline cuboids: no detector runs)")
+    assert launches == 0
+    return tracked, ate
+
+
+def phase12a_kitti_mono(dev, kitti):
+    from cube_slam_tpu_torch.slam.ground import GroundConfig
+    from cube_slam_tpu_torch.slam.kitti import KittiMonoTracker
+    from cube_slam_tpu_torch.slam.system import TrackerConfig
+
+    frames, truth, K, scene, half, rows = kitti
+    H, W = frames[0][0].shape
+    # KITTI 00-02 (cube_slam_tpu/config.py kitti_config: 3000 features x 8
+    # levels); loop closing at its default (on); ground recovery as in
+    # tests/test_kitti_mode.py:71-72, the nominal height the mount's
+    cfg = TrackerConfig(n_features=3000, n_levels=8, max_kf=96, max_mp=12288)
+    ground = GroundConfig(nominal_height=float(abs(truth[0][2, 3])), every_kfs=3, min_points=12, inlier_thresh=0.03)
+    trk = KittiMonoTracker(K, (W, H), rows, truth[0], config=cfg, car_prior=half, ground_cfg=ground,
+                           firstframe_depth_init=KITTI_MONO_OBJECT_BOOTSTRAP, device=dev)
+    log(f"[kitti-mono] {len(frames)} left frames {W}x{H} of phase 11B, KITTI intrinsics, 3000 features x 8 "
+        f"levels, offline rows of the box (tracklet 1), car prior = the box's half extents "
+        f"{np.round(half, 4).tolist()}, ground recovery every 3 keyframes at nominal height "
+        f"{ground.nominal_height:.3f} m; object-depth bootstrap: {KITTI_MONO_OBJECT_BOOTSTRAP}")
+    tracked, ate = _kitti_run(trk, [(left,) for left, _ in frames], truth, scene, "kitti-mono")
+    log(f"[kitti-mono] mono_scale_initialized {trk.mono_scale_initialized}; anchor scales applied "
+        f"{[round(s, 6) for s in trk._anchor_scales]}; ground recoveries {trk.n_scale_recoveries}")
+    assert len(tracked) >= TRACKER_MIN_TRACKED * len(frames), f"tracked only {len(tracked)}/{len(frames)}"
+    assert trk.mono_scale_initialized, "the object-depth anchor never made the map metric"
+    assert np.isfinite(ate), f"metric ATE {ate}"
+
+
+def phase12b_kitti_stereo(dev, kitti):
+    from cube_slam_tpu_torch.slam.kitti import KittiStereoTracker
+    from cube_slam_tpu_torch.slam.system import TrackerConfig
+
+    frames, truth, K, scene, half, rows = kitti
+    H, W = frames[0][0].shape
+    cfg = TrackerConfig(n_features=3000, n_levels=8, max_kf=96, max_mp=12288)
+    trk = KittiStereoTracker(K, (W, H), KITTI_BASELINE, rows, truth[0], config=cfg, car_prior=half,
+                             depth_max=STEREO_DEPTH_MAX, device=dev)
+    log(f"[kitti-stereo] {len(frames)} pairs {W}x{H} of phase 11B, baseline {KITTI_BASELINE} m, 3000 features x 8 "
+        f"levels, depth_max {STEREO_DEPTH_MAX} m, 12A's offline rows and car prior")
+    tracked, ate = _kitti_run(trk, frames, truth, scene, "kitti-stereo")
+    assert len(tracked) >= DEPTH_MIN_TRACKED * len(frames), f"tracked only {len(tracked)}/{len(frames)}"
+    assert np.isfinite(ate) and ate < STEREO_ATE_MAX, f"metric ATE {ate}"
+    assert trk.objects.store.valid.any(), "no object landmark"
+
+
+def kitti_grey(img):
+    """A render as the uint8 grey levels a KITTI folder's PNGs hold, back in
+    float32."""
+    return np.clip(np.round(img), 0, 255).astype(np.uint8).astype(np.float32)
+
+
+class MemoryKittiSequence:
+    """A KittiSequence held in memory (the card's machine may lack PIL):
+    `num_frames`, `K`, `times`, `gray`, `gray_right`, `offline_cuboids`.
+    Frames are rounded to the uint8 grey levels a KITTI folder's PNGs hold."""
+
+    def __init__(self, left, K, rows, right=None):
+        self.num_frames, self.K, self.times = len(left), K, 0.1 * np.arange(len(left))
+        self._left = [kitti_grey(g) for g in left]
+        self._right = None if right is None else [kitti_grey(g) for g in right]
+        self._rows = rows
+
+    def gray(self, i):
+        return self._left[i]
+
+    def gray_right(self, i):
+        return self._right[i]
+
+    def offline_cuboids(self, use_truth_trackid=False):
+        return self._rows
+
+
+def kitti_gate_scene(name):
+    """A KITTI gate at 320x240: (left renders, right renders or None, truth
+    Twc, offline rows, scene). "mono": tests/test_kitti_mode.py:37's 14
+    frames (RoomScene seed 2, tracklet 7); "stereo":
+    tests/test_rgbd_stereo.py:71's 10 pairs (seed 5, tracklet 4, the right
+    camera KITTI_GATE_BASELINE along the left one's x). The box at (-0.8,
+    3.8, 0.8) with half extents KITTI_GATE_HALF is the offline cuboid."""
+    from cube_slam_tpu_torch.utils import synth
+
+    seed, n, tid = (2, 14, 7) if name == "mono" else (5, 10, 4)
+    scene = synth.RoomScene(seed=seed, box_center=[-0.8, 3.8, 0.8], box_half=KITTI_GATE_HALF)
+    poses = synth.camera_path(40)[:n]
+    left = [scene.render(P, KITTI_GATE_K, wh=KITTI_GATE_WH) for P in poses]
+    right = None
+    if name == "stereo":
+        right = []
+        for P in poses:
+            Pr = P.copy()
+            Pr[:3, 3] = P[:3, 3] + P[:3, :3] @ np.array([KITTI_GATE_BASELINE, 0.0, 0.0])
+            right.append(scene.render(Pr, KITTI_GATE_K, wh=KITTI_GATE_WH))
+    return left, right, poses, kitti_rows(scene, poses, KITTI_GATE_K, KITTI_GATE_WH, KITTI_GATE_HALF, tid), scene
+
+
+def kitti_gate_kwargs(system, ground, name):
+    """The tracker (and ground) configuration the gate of `name` hands a
+    KITTI entry point, from either package's system and ground modules."""
+    if name == "stereo":
+        return dict(config=system.TrackerConfig(**KITTI_GATE_STEREO))
+    return dict(config=system.TrackerConfig(**KITTI_GATE_MONO), ground_cfg=ground.GroundConfig(**KITTI_GATE_GROUND))
+
+
+def object_bootstrap(cls):
+    """`cls` (either package's KittiMonoTracker) bootstrapping its map from
+    the first frame's object depth whatever its caller asks: two-view
+    initialization never succeeds on the mono gate's scene here, in either
+    package (tests/test_kitti_mode.py fails with nothing tracked)."""
+
+    class ObjectBootstrap(cls):
+        def __init__(self, *a, **k):
+            k["firstframe_depth_init"] = True
+            super().__init__(*a, **k)
+
+    return ObjectBootstrap
+
+
+def kitti_file_gaps(a, b):
+    """The largest differences between two runs' written files (dicts of
+    the TUM, KITTI and cuboid files' arrays, which must hold the same rows):
+    camera centres (TUM x y z), rotation entries (the KITTI rows' R of Twc),
+    and the landmark's centre, yaw and half-scale (the cuboid file's x y z,
+    yaw, l w h). Yaw is compared modulo pi, the turn that maps a cuboid onto
+    itself."""
+    for ext in a:
+        assert a[ext].shape == b[ext].shape, f"the {ext} files have other rows"
+    assert np.array_equal(a["tum"][:, 0], b["tum"][:, 0]) and np.array_equal(a["cuboids"][:, 0], b["cuboids"][:, 0])
+    rot = [0, 1, 2, 4, 5, 6, 8, 9, 10]
+    ca, cb = a["cuboids"], b["cuboids"]
+    return dict(centre=float(np.linalg.norm(a["tum"][:, 1:4] - b["tum"][:, 1:4], axis=1).max()),
+                rotation=float(np.abs(a["kitti"][:, rot] - b["kitti"][:, rot]).max()),
+                landmark=float(np.linalg.norm(ca[:, 1:4] - cb[:, 1:4], axis=1).max()),
+                yaw=float(np.abs((ca[:, 4] - cb[:, 4] + np.pi / 2) % np.pi - np.pi / 2).max()),
+                scale=float(np.abs(ca[:, 5:8] - cb[:, 5:8]).max()))
+
+
+def _kitti_entry(name, seq, init_to_ground, device, tmp):
+    """One run of a KITTI entry point with output_prefix and the gate's
+    tracker (and ground) configuration, the tracker class it builds by its
+    module-level name swapped for the fold-synchronous one (and, for the
+    mono gate, the object-depth bootstrap) for the call. Returns the
+    tracker's outcome and the written files."""
+    from cube_slam_tpu_torch.slam import ground, kitti, system
+
+    prefix = os.path.join(tmp, f"{name}_{len(os.listdir(tmp))}")
+    if name == "mono":
+        cls, attr = object_bootstrap(_always_fold(kitti.KittiMonoTracker)), "KittiMonoTracker"
+    else:
+        cls, attr = _always_fold(kitti.KittiStereoTracker), "KittiStereoTracker"
+    orig = getattr(kitti, attr)
+    setattr(kitti, attr, cls)
+    try:
+        kw = dict(kitti_gate_kwargs(system, ground, name), output_prefix=prefix, device=device)
+        if name == "mono":
+            trk = kitti.run_kitti_sequence(seq, init_to_ground, **kw)
+        else:
+            trk = kitti.run_kitti_stereo_sequence(seq, init_to_ground, KITTI_GATE_BASELINE, **kw)
+    finally:
+        setattr(kitti, attr, orig)
+    return dict(traj=trk.final_trajectory(), kf_frames=sorted(int(trk.map.kf_frame_id[k]) for k in trk.map.kf_ids()),
+                anchors=list(getattr(trk, "_anchor_scales", [])), recoveries=getattr(trk, "n_scale_recoveries", 0),
+                files={ext: np.loadtxt(prefix + f"_{ext}.txt", ndmin=2) for ext in ("tum", "kitti", "cuboids")})
+
+
+def phase12c_kitti_card_vs_cpu(dev):
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("mono", "stereo"):
+            left, right, poses, rows, _ = kitti_gate_scene(name)
+            seq = MemoryKittiSequence(left, KITTI_GATE_K, rows, right)
+            bound = KITTI_ENTRY_BOUNDS[name]
+            g, g2, c = (_kitti_entry(name, seq, poses[0], d, tmp) for d in (dev, dev, "cpu"))
+            fg = [f for f, T in g["traj"] if T is not None]
+            fc = [f for f, T in c["traj"] if T is not None]
+            repeat = (g["kf_frames"] == g2["kf_frames"] and g["anchors"] == g2["anchors"]
+                      and all((x is None and y is None) or np.array_equal(x, y)
+                              for (_, x), (_, y) in zip(g["traj"], g2["traj"]))
+                      and all(np.array_equal(g["files"][k], g2["files"][k]) for k in g["files"]))
+            ga, ca = g["anchors"], c["anchors"]
+            gaps = dict(anchor=abs(ga[1] / ca[1] - 1.0) if len(ga) > 1 and len(ca) > 1 else 0.0,
+                        **kitti_file_gaps(g["files"], c["files"]))
+            log(f"[kitti-small] {name}, {seq.num_frames} frames 320x240 through run_kitti_"
+                f"{'sequence' if name == 'mono' else 'stereo_sequence'} on the card (twice) and on the CPU: tracked "
+                f"{fg} / {fc}; keyframes at frames {g['kf_frames']} / {c['kf_frames']}; anchors "
+                f"{[round(x, 6) for x in ga]} / {[round(x, 6) for x in ca]}; recoveries "
+                f"{g['recoveries']} / {c['recoveries']}; gaps " + ", ".join(f"{k} {v:.4g}" for k, v in gaps.items())
+                + " (bounds " + ", ".join(f"{k} {bound[k]}" for k in gaps)
+                + f"); two card runs bit-identical: {repeat}")
+            log(f"[kitti-small] {name} cuboid rows (id x y z yaw l w h), card / CPU: "
+                f"{g['files']['cuboids'].tolist()} / {c['files']['cuboids'].tolist()}")
+            assert fg == fc, f"{name}: tracked frames differ card vs CPU"
+            assert g["recoveries"] == c["recoveries"], f"{name}: ground recoveries differ card vs CPU"
+            assert abs(len(g["kf_frames"]) - len(c["kf_frames"])) <= bound["keyframes"], \
+                f"{name}: keyframe counts differ card vs CPU"
+            assert abs(len(ga) - len(ca)) <= bound["anchors"], f"{name}: anchor counts differ card vs CPU"
+            assert ga[:1] == ca[:1], f"{name}: first anchors differ card vs CPU"
+            for k, v in gaps.items():
+                assert bound[k] is None or v <= bound[k], f"{name}: {k} differs card vs CPU by {v} (bound {bound[k]})"
+            assert repeat, f"{name}: two card runs differ"
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1516,6 +1861,12 @@ def main():
     timed("phase 11 A", phase11a_rgbd, dev, rgbd)
     timed("phase 11 B", phase11b_stereo, dev, stereo)
     timed("phase 11 C", phase11c_depth_card_vs_cpu, dev)
+    t12 = time.perf_counter()
+    kitti = kitti_inputs(stereo)
+    timed("phase 12 A", phase12a_kitti_mono, dev, kitti)
+    timed("phase 12 B", phase12b_kitti_stereo, dev, kitti)
+    timed("phase 12 C", phase12c_kitti_card_vs_cpu, dev)
+    log(f"[time] phase 12: {time.perf_counter() - t12:.1f} s")
     log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s (limit 1200 s)")
 
     log(json.dumps({"kernels": [{

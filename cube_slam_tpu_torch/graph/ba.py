@@ -6,7 +6,8 @@ Optimizer.cc:
 * `pose_optimization` — per-frame pose-only LM with Huber kernel and the
   4-round chi-square outlier re-leveling (Optimizer::PoseOptimization,
   Optimizer.cc:253-472: 4 x 10 iterations, outliers at 5.991 excluded
-  between rounds). Several seeds solve at once as a leading batch dim.
+  between rounds), linearized once per round as in the JAX package.
+  Several seeds solve at once as a leading batch dim.
 * `local_ba_points` — camera+point BA (Optimizer::LocalBundleAdjustment,
   :474-824) as a dense-blocked Schur solver: closed-form 2x6/2x3 Jacobian
   blocks, segment-sum assembly of Hcc/Hpp/W, the reduced camera system
@@ -124,7 +125,14 @@ def pose_optimization(Tcw0, K, pts_world, uv_meas, sqrt_info, valid,
 
     Returns (Tcw, inlier_mask, n_inliers), batched like Tcw0. Mirrors
     PoseOptimization's round structure: optimize, re-classify outliers at
-    chi2 > 5.991, repeat with outliers excluded (they may return)."""
+    chi2 > 5.991, repeat with outliers excluded (they may return).
+
+    Each round linearizes once, at the pose it starts from, as the JAX
+    package does (its residual closes over the round's first pose, not the
+    iterate): every iteration solves those normal equations with its own
+    damping and applies the step to the current pose, and the robust cost
+    at the new pose decides. On a weak frame this lands on another pose
+    than an LM that relinearizes."""
     single = Tcw0.ndim == 2
     T = Tcw0[None] if single else Tcw0
     B = T.shape[0]
@@ -143,12 +151,14 @@ def pose_optimization(Tcw0, K, pts_world, uv_meas, sqrt_info, valid,
     for _ in range(num_rounds):
         lam = torch.full((B,), 1e-3, dtype=T.dtype, device=dev)
         chi = cost(T, active)
+        r0, J = pose_residual_jacobian(T, K, pts_world, uv_meas, sqrt_info, active)
+        J = J.reshape(B, -1, 6)
+        r0 = r0.reshape(B, -1)
+        # sums over the edges in a fixed order: a GEMM splits them by thread
+        # count, and the round's accept decisions turn on the last bits
+        H = torch.sum(J[..., :, None] * J[..., None, :], dim=1)
+        g = torch.sum(J * r0[..., None], dim=1)
         for _ in range(iters_per_round):
-            r0, J = pose_residual_jacobian(T, K, pts_world, uv_meas, sqrt_info, active)
-            J = J.reshape(B, -1, 6)
-            r0 = r0.reshape(B, -1)
-            H = J.transpose(1, 2) @ J
-            g = (J.transpose(1, 2) @ r0[..., None])[..., 0]
             dx = _cholesky_solve(H + lam[:, None, None] * eye6, -g)
             T_new = geo.se3_exp(dx) @ T
             c_new = cost(T_new, active)

@@ -57,7 +57,10 @@ def _horn_rt(A, B, w):
 
 
 def _solve_sym(A, b):
-    return torch.linalg.solve(A, b[..., None])[..., 0]
+    """Batched solve; NaN for a singular system (a degenerate sample), as
+    XLA's LU gives, where torch.linalg.solve would raise."""
+    x, info = torch.linalg.solve_ex(A, b[..., None])
+    return torch.where((info == 0)[..., None], x[..., 0], torch.nan)
 
 
 def _gauss_newton_betas(L, rho, betas, iters=5):

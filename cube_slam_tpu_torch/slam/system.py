@@ -52,7 +52,6 @@ from . import loop_closing as lc
 from . import pnp
 from . import tracking as trk
 from .ground import GroundConfig, GroundScaleEstimator
-from .kitti import _ray_cuboid_depth
 from .objects import ObjectManager
 from .state import FrameFeatures, MapState
 
@@ -1665,6 +1664,8 @@ class ObjectSlamTracker(MonocularTracker):
         depth = the keypoint ray's first hit on the detected cuboid (the
         visible surface the point sits on); estimated depth = the owned map
         point's camera-frame z."""
+        from .kitti import _ray_cuboid_depth  # kitti imports this module
+
         m = self.map
         mp = m.kf_kp_mp[k]
         if len(det.owned_kps) == 0:

@@ -28,12 +28,13 @@ SLICE2 = ["ops.orb", "ops.matching", "utils.profiler", "utils.metrics", "slam.st
 SLICE3 = ["ops.ransac", "slam.ground", "slam.kitti", "slam.objects", "graph.object_ba"]
 SLICE4 = ["slam.sim3", "slam.loop_closing", "utils.serialization"]
 SLICE5A = ["ops.stereo", "slam.system"]
+SLICE5B = ["slam.kitti"]
 
 
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "cube_slam_tpu_torch.models.detector" in mods and len(mods) >= 26
-    assert not {"cube_slam_tpu_torch." + m for m in SLICE2 + SLICE3 + SLICE4 + SLICE5A} - set(mods)
+    assert not {"cube_slam_tpu_torch." + m for m in SLICE2 + SLICE3 + SLICE4 + SLICE5A + SLICE5B} - set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -48,11 +49,11 @@ def test_every_module_imports_without_jax():
     assert out.stdout.strip() == "[]"
 
 
-@pytest.mark.parametrize("module", SLICE4 + SLICE5A)
+@pytest.mark.parametrize("module", SLICE4 + SLICE5A + SLICE5B)
 def test_loop_slice_module_imports_alone_without_jax(module):
-    """Each module of the loop-closing slice and of the depth inputs,
-    imported alone in a fresh interpreter, pulls in neither JAX nor the JAX
-    package."""
+    """Each module of the loop-closing slice, of the depth inputs and of the
+    KITTI trackers, imported alone in a fresh interpreter, pulls in neither
+    JAX nor the JAX package."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('cube_slam_tpu_torch.{module}')\n"
@@ -91,6 +92,7 @@ def test_tracker_on_cuda_raises_without_a_card():
 def _entry_point(name):
     """Each entry point built with no device argument."""
     from cube_slam_tpu_torch.models.detector import CuboidDetector
+    from cube_slam_tpu_torch.slam.kitti import KittiMonoTracker, KittiStereoTracker
     from cube_slam_tpu_torch.slam.object_slam import ObjectSlamDemo, optimize_graph
     from cube_slam_tpu_torch.slam.system import (MonocularTracker, ObjectSlamTracker, RgbdTracker, StereoTracker,
                                                  TrackerConfig)
@@ -105,6 +107,10 @@ def _entry_point(name):
         return RgbdTracker(np.eye(3), (320, 240), TrackerConfig(), depth_max=8.0, init_Twc=np.eye(4))
     if name == "StereoTracker":
         return StereoTracker(np.eye(3), (320, 240), 0.12, TrackerConfig(), depth_max=20.0)
+    if name == "KittiMonoTracker":
+        return KittiMonoTracker(np.eye(3), (320, 240), [], np.eye(4), TrackerConfig())
+    if name == "KittiStereoTracker":
+        return KittiStereoTracker(np.eye(3), (320, 240), 0.54, [], np.eye(4), TrackerConfig())
     if name == "CuboidDetector":
         return CuboidDetector()
     if name == "CuboidDetector.from_config":
@@ -116,8 +122,8 @@ def _entry_point(name):
 
 
 @pytest.mark.parametrize("name", ["ObjectSlamDemo", "MonocularTracker", "ObjectSlamTracker", "RgbdTracker",
-                                  "StereoTracker", "CuboidDetector", "CuboidDetector.from_config",
-                                  "optimize_graph"])
+                                  "StereoTracker", "KittiMonoTracker", "KittiStereoTracker", "CuboidDetector",
+                                  "CuboidDetector.from_config", "optimize_graph"])
 def test_entry_points_default_to_the_card(name):
     """Without a device the entry points run on the card: where there is
     one they land on it, and where there is none they raise instead of

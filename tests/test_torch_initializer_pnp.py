@@ -116,3 +116,22 @@ def test_epnp_single_solve_matches_jax():
     assert bool(okj) and bool(okt[0])
     assert_close(to_np(Rt[0]), np.asarray(Rj), atol=1e-4)
     assert_close(to_np(tt[0]), np.asarray(tj), atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["singular", "regular"])
+def test_small_solve_gives_nan_for_a_singular_system_as_jax(case):
+    """The EPnP beta solves on a singular system (a degenerate RANSAC
+    sample: two equal columns) give NaN as jnp.linalg.solve does, and raise
+    nothing; a regular system is solved to float rounding (1e-6)."""
+    if case == "singular":
+        A = np.array([[3, 0, 3], [0, 1e-9, 0], [3, 0, 3]], np.float32)
+        b = np.array([5e-8, 0, 5e-8], np.float32)
+    else:
+        A = np.array([[2, 1, 0], [1, 3, 1], [0, 1, 4]], np.float32)
+        b = np.array([1, 2, 3], np.float32)
+    j = np.asarray(jnp.linalg.solve(jnp.asarray(A), jnp.asarray(b)))
+    p = to_np(tpnp._solve_sym(t(A)[None], t(b)[None])[0])
+    if case == "singular":
+        assert np.isnan(j).all() and np.isnan(p).all()
+    else:
+        assert_close(p, j, atol=1e-6)

@@ -7,8 +7,15 @@ come back as numpy and are compared with a tolerance each test states.
 
 from __future__ import annotations
 
+import os
+import sys
+
 import numpy as np
 import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke as cs  # noqa: E402
 
 from cube_slam_tpu_torch.utils.synth import DRIFTED_LOOP_K as LOOP_K  # noqa: F401
 from cube_slam_tpu_torch.utils.synth import DRIFTED_LOOP_N_KF as LOOP_N_KF  # noqa: F401
@@ -190,6 +197,119 @@ def carry_object_tracker(jtrk, device="cpu"):
     else:
         t._ground_est.filtered_height = jtrk._ground_est.filtered_height
         t._ground_est.kf_counter = jtrk._ground_est.kf_counter
+    return t
+
+
+# The KITTI gates: tests/test_kitti_mode.py:37's monocular scene and
+# tests/test_rgbd_stereo.py:71's stereo scene (320x240, float renders), the
+# scene's box as the offline cuboid, init_to_ground = the first truth pose.
+# Their scenes, configuration, bounds and file comparison are chip_smoke.py's
+# (phase 12C runs the same gates on the card).
+KITTI_HALF = cs.KITTI_GATE_HALF
+KITTI_BASELINE = cs.KITTI_GATE_BASELINE
+KITTI_STEREO_DEPTH_MAX = 15.0
+object_bootstrap = cs.object_bootstrap
+
+
+def kitti_mono_sequence():
+    """(frames, truth Twc, offline rows, scene) of the monocular KITTI gate
+    (chip_smoke.kitti_gate_scene("mono"))."""
+    left, _, poses, rows, scene = cs.kitti_gate_scene("mono")
+    return left, poses, rows, scene
+
+
+def kitti_stereo_sequence():
+    """((left, right) per frame, truth Twc, offline rows, scene) of the
+    stereo KITTI gate (chip_smoke.kitti_gate_scene("stereo"))."""
+    left, right, poses, rows, scene = cs.kitti_gate_scene("stereo")
+    return list(zip(left, right)), poses, rows, scene
+
+
+def kitti_mono_tracker(pkg, offline, init_to_ground, device=None, **kw):
+    """The gate's KittiMonoTracker of either package (`pkg` is a package's
+    slam module: it reads pkg.kitti, pkg.system, pkg.ground), its local-BA
+    fold forced synchronous."""
+    dev = {} if device is None else dict(device=device)
+    return sync_fold(pkg.kitti.KittiMonoTracker)(
+        GATE_A_K, (320, 240), offline, init_to_ground, use_truth_trackid=True, car_prior=KITTI_HALF,
+        **kitti_entry_config(pkg, "mono"), **dev, **kw)
+
+
+def kitti_stereo_tracker(pkg, offline, init_to_ground, device=None):
+    """The stereo gate's KittiStereoTracker of either package, its local-BA
+    fold forced synchronous."""
+    dev = {} if device is None else dict(device=device)
+    return sync_fold(pkg.kitti.KittiStereoTracker)(
+        GATE_A_K, (320, 240), KITTI_BASELINE, offline, init_to_ground, car_prior=tuple(KITTI_HALF),
+        depth_max=KITTI_STEREO_DEPTH_MAX, **kitti_entry_config(pkg, "stereo"), **dev)
+
+
+# The KITTI entry points' sequences, as a KITTI folder stores them (uint8
+# PNGs, read back as float32 grey levels): the mono gate's 14 frames and the
+# stereo gate's 10 pairs with their rows, through the trackers that
+# run_kitti_sequence / run_kitti_stereo_sequence build with the gates'
+# tracker (and ground) configuration, the default car prior and depth range;
+# the mono tracker bootstraps from the object's depth, as two-view
+# initialization never succeeds on the mono gate's scene here.
+def kitti_entry_sequence(kind):
+    """(frames or (left, right) pairs as float32 grey levels, truth Twc,
+    offline rows, scene) of an entry point's sequence."""
+    left, right, poses, rows, scene = cs.kitti_gate_scene(kind)
+    if kind == "stereo":
+        return [(cs.kitti_grey(a), cs.kitti_grey(b)) for a, b in zip(left, right)], poses, rows, scene
+    return [cs.kitti_grey(f) for f in left], poses, rows, scene
+
+
+def kitti_entry_config(pkg, kind):
+    """The keyword arguments the tests hand the entry point of `kind`."""
+    return cs.kitti_gate_kwargs(pkg.system, pkg.ground, kind)
+
+
+def kitti_entry_tracker(pkg, kind, rows, init_to_ground, times, device=None):
+    """The tracker the entry point of `kind` builds from those arguments
+    (the swapped class: fold-synchronous, and for mono the object
+    bootstrap)."""
+    dev = {} if device is None else dict(device=device)
+    if kind == "stereo":
+        return sync_fold(pkg.kitti.KittiStereoTracker)(GATE_A_K, (320, 240), KITTI_BASELINE, rows, init_to_ground,
+                                                       use_truth_trackid=True, **kitti_entry_config(pkg, kind), **dev)
+    return object_bootstrap(sync_fold(pkg.kitti.KittiMonoTracker))(
+        GATE_A_K, (320, 240), rows, init_to_ground, use_truth_trackid=True, frame_stamps=times,
+        **kitti_entry_config(pkg, kind), **dev)
+
+
+def carry_kitti_tracker(jtrk, device="cpu"):
+    """A port KittiMonoTracker or KittiStereoTracker in the state of a JAX
+    one: everything carry_tracker carries, plus the offline rows, the
+    object manager (ObjectManager.load_state) and, for the monocular
+    tracker, the ground estimator's state, the applied anchor scales, the
+    recovery count, the scale flag and the pending first-frame depth."""
+    from cube_slam_tpu.slam import kitti as jk
+    from cube_slam_tpu_torch.slam import ground as tground
+    from cube_slam_tpu_torch.slam import kitti as tk
+    from cube_slam_tpu_torch.slam import system as tsys
+
+    cfg = tsys.TrackerConfig(**vars(jtrk.cfg))
+    common = dict(config=cfg, use_truth_trackid=jtrk.use_truth_trackid, car_prior=jtrk.car_prior,
+                  camera_object_weight=jtrk.camera_object_weight, device=device)
+    if isinstance(jtrk, jk.KittiStereoTracker):
+        t = tk.KittiStereoTracker(jtrk.K, jtrk.img_wh, jtrk.baseline, jtrk.offline, jtrk.init_to_ground,
+                                  depth_max=jtrk.depth_max, **common)
+        t.init_Tcw = jtrk.init_Tcw.copy()
+        t._pending_depth = _copy(jtrk._pending_depth)
+    else:
+        t = tk.KittiMonoTracker(jtrk.K, jtrk.img_wh, jtrk.offline, jtrk.init_to_ground,
+                                ground_cfg=tground.GroundConfig(**vars(jtrk.ground.cfg)),
+                                cam_ground_normal=jtrk.cam_ground_normal,
+                                firstframe_depth_init=jtrk.firstframe_depth_init, frame_stamps=jtrk.frame_stamps,
+                                first_depth=_copy(jtrk.first_depth), **common)
+        t.ground.filtered_height = jtrk.ground.filtered_height
+        t.ground.kf_counter = jtrk.ground.kf_counter
+        t._anchor_scales = list(jtrk._anchor_scales)
+        for name in ("mono_scale_initialized", "n_scale_recoveries"):
+            setattr(t, name, getattr(jtrk, name))
+    _carry_base(t, jtrk, device)
+    t.objects.load_state(vars(jtrk.objects))
     return t
 
 
