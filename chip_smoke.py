@@ -115,6 +115,26 @@ Phases (any failure exits non-zero before a result is printed):
    files within KITTI_ENTRY_BOUNDS (how far 1-ulp perturbations move the
    JAX package's own run: these runs fork on rounding), the two card runs
    bit-identical; it prints both runs' cuboid rows.
+13. dynamic objects (no detector, so no EDT launch, checked). A:
+   KittiMonoTracker(dynamic=True).track(left) over phase 11B's 40-frame
+   1241x376 orbit re-rendered with the room box driving along world +x
+   (offline rows with tracklet 7, the car prior = the box's half extents,
+   the map bootstrapped from frame 0's rendered depth, 3000 features x 8
+   levels). B: DynamicRgbdTracker.track(gray, depth, detections) over phase
+   6's 58-frame 640x480 orbit with the box driving (TUM preset, instance
+   masks: KLT chains, forward-backward LK and Harris re-seeding on the
+   card). Each prints frames tracked, keyframes, map points, the metric
+   ATE, the object's velocity against the truth, its median per-keyframe
+   position error and displacement error, frames/s, the dyn.* spans per
+   keyframe and KLT's device ms and calls per frame. C: harris_corners and
+   pyr_lk on a 13B frame pair, dynamic_object_ba on
+   tests/test_dynamic_ba.py's scene and track_dynamic_object on
+   tests/test_dynamic_pipeline.py's, then the gates of
+   tests/test_dynamic_tracker.py (DynamicRgbdTracker) and
+   tests/test_kitti_dynamic.py (run_kitti_sequence(dynamic=True) with
+   output_prefix), each on the card twice and on the CPU: within
+   KLT_TRACK_TOL, DYNAMIC_BA_TOL and DYNAMIC_GATE_BOUNDS (the CPU tests'
+   bounds), the card runs bit-identical.
 
 Each phase prints its seconds, and the last [time] line the whole run's
 against the 1,200 s limit.
@@ -1834,6 +1854,588 @@ def phase12c_kitti_card_vs_cpu(dev):
             assert repeat, f"{name}: two card runs differ"
 
 
+# phase 13: the dynamic gates at 320x240, the scene of
+# tests/test_dynamic_tracker.py and tests/test_kitti_dynamic.py (RoomScene
+# seed 3, its box of half extents DYNAMIC_GATE_HALF driving along world +x
+# at DYNAMIC_GATE_SPEED m per frame, 12 frames of camera_path(40), the
+# first pose as init_to_ground / ground_Twc0, the box's truth pose moved by
+# 2 cm noise as the per-frame measurement); tests/torch_parity_utils.py
+# builds its dynamic gates from these
+DYNAMIC_GATE_HALF = np.array([0.5, 0.35, 0.35], dtype=np.float32)
+DYNAMIC_GATE_FRAMES = 12
+DYNAMIC_GATE_SPEED = 0.15
+DYNAMIC_GATE_TID = 7  # the mono gate's tracklet; the RGBD gate's detections carry 0
+DYNAMIC_GATE_CONFIG = dict(n_features=600, n_levels=3, max_kf=24, max_mp=4096, min_init_kps=80, min_init_matches=80,
+                           new_kf_max_frames=2, enable_loop_closing=False)
+DYNAMIC_GATE_RGBD_DEPTH_MAX = 15.0
+# 13C and the CPU parity tests: KLT tracks (pixels per point) and the
+# dynamic BA's solved entries (poses, points, velocity), port against JAX
+# and card against CPU (tests/test_torch_klt.py and
+# tests/test_torch_dynamic_ba.py say what they measured)
+KLT_TRACK_TOL = 1e-3
+DYNAMIC_BA_TOL = 2e-3
+
+
+def moving_box_renders(scene, poses, K, wh, speed, grey=False):
+    """`scene`'s box driving along world +x at `speed` m per frame from
+    where it stands, seen from `poses`: dict of frames (float grey levels,
+    rounded when `grey`), depths, instance masks, 2D boxes (None where out
+    of view), the truth Twc, the box's truth poses, its half extents, and per
+    frame the measurement noise of tests/test_dynamic_tracker.py (numpy
+    default_rng(4), one normal draw per axis, drawn only where the box is in
+    view and covers more than 200 pixels; None elsewhere)."""
+    rng = np.random.default_rng(4)
+    c0 = np.array(scene.box_center, dtype=np.float64)
+    g = dict(frames=[], depths=[], masks=[], bboxes=[], poses=poses, true_obj=[], noise=[],
+             half=np.asarray(scene.box_half, dtype=np.float32))
+    for i, P in enumerate(poses):
+        scene.set_box_pose(c0 + np.array([speed * i, 0.0, 0.0]), yaw=0.0)
+        img, depth, mask = scene.render(P, K, wh=wh, return_depth=True, return_mask=True)
+        T_obj, _ = scene.box_pose_scale()
+        bbox = scene.box_bbox_2d(P, K, wh=wh)
+        seen = bbox is not None and mask.sum() > 200
+        for k, v in (("frames", np.round(img).astype(np.float32) if grey else img), ("depths", depth),
+                     ("masks", mask), ("bboxes", bbox), ("true_obj", T_obj.copy()),
+                     ("noise", rng.normal(size=3) if seen else None)):
+            g[k].append(v)
+    return g
+
+
+def dynamic_gate_scene():
+    """The dynamic gates' renders (moving_box_renders of their scene)."""
+    from cube_slam_tpu_torch.utils import synth
+
+    scene = synth.RoomScene(seed=3, box_center=[-1.0, 3.5, 0.35], box_half=DYNAMIC_GATE_HALF)
+    return moving_box_renders(scene, synth.camera_path(40)[:DYNAMIC_GATE_FRAMES], KITTI_GATE_K, KITTI_GATE_WH,
+                              DYNAMIC_GATE_SPEED)
+
+
+def moving_box_dets(g, DynamicDetection):
+    """Per-frame detections of the moving box as tests/test_dynamic_tracker.py
+    makes them: tracklet 0, the camera-frame box pose in float32 moved by
+    0.02 m times the noise, the 2D box and the instance mask; None where the
+    box is not seen. Built with either package's DynamicDetection."""
+    out = []
+    for P, T_obj, bbox, mask, noise in zip(g["poses"], g["true_obj"], g["bboxes"], g["masks"], g["noise"]):
+        if noise is None:
+            out.append(None)
+            continue
+        local = (np.linalg.inv(P) @ T_obj).astype(np.float32)
+        local[:3, 3] += 0.02 * noise.astype(np.float32)
+        out.append([DynamicDetection(tracklet_id=0, local_pose=local, scale=g["half"],
+                                     bbox=np.asarray(bbox, dtype=np.float32), mask=mask)])
+    return out
+
+
+def moving_box_rows(g, tid):
+    """Per-frame 13-column offline rows of the moving box as
+    tests/test_kitti_dynamic.py makes them: the camera-frame box pose moved
+    by 0.02 m times the noise, in the local ground frame of the first pose,
+    tracklet `tid`; (0, 13) where the box is not seen."""
+    rows = []
+    h = g["half"]
+    for P, T_obj, bbox, noise in zip(g["poses"], g["true_obj"], g["bboxes"], g["noise"]):
+        if noise is None:
+            rows.append(np.zeros((0, 13)))
+            continue
+        local = np.linalg.inv(P) @ T_obj
+        local[:3, 3] += 0.02 * noise
+        pose_lg = g["poses"][0] @ local
+        yaw = float(np.arctan2(pose_lg[1, 0], pose_lg[0, 0]))
+        rows.append(np.array([[pose_lg[0, 3], pose_lg[1, 3], pose_lg[2, 3], yaw, h[0], h[1], h[2],
+                               bbox[0], bbox[1], bbox[2], bbox[3], 0.9, float(tid)]]))
+    return rows
+
+
+def dynamic_ba_scene(seed=0):
+    """tests/test_dynamic_ba.py's scene in numpy: a car-like cuboid (the
+    KITTI prior) driving straight along +x at 2 m/s past a camera rig
+    behind and above it, 5 keyframes 0.5 s apart, 24 surface points.
+    Returns (tcw, stamps, obj_pose, scale, v_true, local points, dp_kf,
+    dp_obj, dp_pt, dp_uv) with K = DYNAMIC_BA_K."""
+    rng = np.random.default_rng(seed)
+    K = DYNAMIC_BA_K
+    n_kf = 5
+    scale = np.array([1.9420, 0.8143, 0.7631], dtype=np.float32)
+    v_true = 2.0
+    stamps = np.arange(n_kf, dtype=np.float32) * 0.5
+    obj_pose = np.tile(np.eye(4, dtype=np.float32), (n_kf, 1, 1))
+    obj_pose[:, :3, 3] = np.stack([v_true * stamps, np.zeros(n_kf), np.full(n_kf, scale[2])], axis=1)
+    Q = 24
+    face = rng.integers(0, 3, Q)
+    sgn = rng.choice([-1.0, 1.0], Q)
+    lp = rng.uniform(-1, 1, (Q, 3)).astype(np.float32)
+    for i in range(Q):
+        lp[i, face[i]] = sgn[i]
+    lp = lp * scale
+    tcw = []
+    for i in range(n_kf):
+        eye = np.array([v_true * stamps[i] - 8.0, 1.5, 1.6])
+        f = np.array([v_true * stamps[i], 0.0, scale[2]]) - eye
+        f = f / np.linalg.norm(f)
+        x = np.cross(f, np.array([0.0, 0.0, 1.0]))
+        x /= np.linalg.norm(x)
+        Twc = np.eye(4, dtype=np.float32)
+        Twc[:3, :3] = np.stack([x, np.cross(f, x), f], axis=1)
+        Twc[:3, 3] = eye
+        tcw.append(np.linalg.inv(Twc).astype(np.float32))
+    tcw = np.stack(tcw)
+    dp_kf, dp_pt, dp_uv = [], [], []
+    for i in range(n_kf):
+        Xc = (lp @ obj_pose[i][:3, :3].T + obj_pose[i][:3, 3]) @ tcw[i][:3, :3].T + tcw[i][:3, 3]
+        uv = Xc @ K.T
+        uv = uv[:, :2] / uv[:, 2:3]
+        for q in range(Q):
+            if Xc[q, 2] > 0.5:
+                dp_kf.append(i)
+                dp_pt.append(q)
+                dp_uv.append(uv[q])
+    return (tcw, stamps, obj_pose, scale, v_true, lp, np.asarray(dp_kf), np.zeros(len(dp_kf), dtype=np.int64),
+            np.asarray(dp_pt), np.stack(dp_uv))
+
+
+DYNAMIC_BA_K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], dtype=np.float32)
+
+
+def dynamic_pipeline_scene():
+    """tests/test_dynamic_pipeline.py's scene: a static camera watching the
+    box (RoomScene seed 5) drive by at 0.8 m/s, 6 frames 0.25 s apart at
+    320x240, with masks and 2D boxes, and the truth poses moved by
+    default_rng(0) 3 cm noise as the initial object poses. Returns
+    (track_dynamic_object's positional arguments, its keywords, truth poses,
+    v_true)."""
+    from cube_slam_tpu_torch.utils import synth
+
+    half = np.array([0.5, 0.35, 0.35])
+    scene = synth.RoomScene(seed=5, box_center=[0.0, 3.0, 0.35], box_half=half)
+    N, dt, v_true = 6, 0.25, 0.8
+    stamps = np.arange(N) * dt
+    eye = np.array([0.3, 0.2, 1.0])
+    f = np.array([0.5, 3.0, 0.4]) - eye
+    f = f / np.linalg.norm(f)
+    x = np.cross(f, [0.0, 0.0, 1.0])
+    x /= np.linalg.norm(x)
+    Twc = np.eye(4)
+    Twc[:3, :3] = np.stack([x, np.cross(f, x), f], axis=1)
+    Twc[:3, 3] = eye
+    frames, masks, bboxes, true = [], [], [], []
+    for i in range(N):
+        scene.set_box_pose(np.array([v_true * stamps[i], 3.0, 0.35]))
+        img, mask = scene.render(Twc, KITTI_GATE_K, wh=KITTI_GATE_WH, return_mask=True)
+        frames.append(img)
+        masks.append(mask)
+        bboxes.append(scene.box_bbox_2d(Twc, KITTI_GATE_K, wh=KITTI_GATE_WH))
+        true.append(scene.box_pose_scale()[0])
+    true = np.stack(true)
+    init = true.copy()
+    init[:, :3, 3] += 0.03 * np.random.default_rng(0).normal(size=(N, 3))
+    args = (frames, masks, np.stack([np.linalg.inv(Twc)] * N), stamps, init, half, KITTI_GATE_K)
+    return args, dict(bboxes=bboxes, max_pts=48, ba_iters=25), true, v_true
+
+
+def dynamic_gate_bootstrap(cls, depth):
+    """`cls` (either package's KittiMonoTracker) as tests/test_kitti_dynamic.py
+    builds it, whatever its caller asks: its map bootstrapped from the first
+    frame's depth image `depth` (mono_firstframe_truth_depth_init) and the
+    box's half extents as the car prior. run_kitti_sequence takes neither."""
+
+    class DynamicGateTracker(cls):
+        def __init__(self, *a, **k):
+            k.update(first_depth=depth, car_prior=DYNAMIC_GATE_HALF)
+            super().__init__(*a, **k)
+
+    return DynamicGateTracker
+
+
+# phase 13: 13A at 11B's KITTI orbit, 13B at phase 6's TUM orbit, the room
+# box driving along world +x (m per frame: the stamps are frame ids); 13A
+# needs offline rows on at least DYNAMIC_MIN_ROWS of its 40 frames
+DYNAMIC_KITTI_SPEED = 0.03
+DYNAMIC_RGBD_SPEED = 0.02
+DYNAMIC_MIN_ROWS = 30
+DYNAMIC_SPANS = ("dyn.advance", "dyn.keyframe", "dyn.ba", "kf.total", "ba.fold")
+# 13C: the dynamic gates card against CPU, and the CPU tests' port against
+# JAX: the radius of JAX's 1-ulp spread in the same runs, the largest gap
+# of any of its perturbed runs from its unperturbed one
+# (tools/kitti_gate_spread.py --gate dynamic-rgbd / dynamic-kitti /
+# dynamic-kitti-entry --at keyframes): keyframe count, camera centres (m)
+# and rotation entries, the object's per-keyframe positions (m), its speed
+# (m per frame; m/s for the entry point's 0.1 s frames) and steering angle
+# (rad), each from 24 perturbed runs. "kitti" is the mono gate through the
+# tracker (float frames), "kitti-entry" through run_kitti_sequence (uint8
+# grey levels). Every perturbed run tracks all 12 frames; the RGBD gate's
+# keep six keyframes, but on other frames (card and CPU do too)
+DYNAMIC_GATE_BOUNDS = {
+    "rgbd": dict(keyframes=0, centre=0.551, rotation=0.121, object=0.210, speed=0.0413, steer=0.0411),
+    "kitti": dict(keyframes=1, centre=0.104, rotation=0.0517, object=0.0399, speed=0.00485, steer=0.0755),
+    "kitti-entry": dict(keyframes=1, centre=0.134, rotation=0.0580, object=0.0458, speed=0.0959, steer=0.0598),
+}
+
+
+class _KltTimer:
+    """Device time of every pyr_lk / harris_corners call (CUDA events read
+    after the run, so nothing syncs in between) and the calls made."""
+
+    def __init__(self):
+        from cube_slam_tpu_torch.ops import klt
+
+        self.klt, self.events, self.orig = klt, [], {}
+
+    def __enter__(self):
+        for name in ("pyr_lk", "harris_corners"):
+            fn = self.orig[name] = getattr(self.klt, name)
+
+            def timed_call(*a, fn=fn, name=name, **k):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **k)
+                e1.record()
+                self.events.append((name, e0, e1))
+                return out
+
+            setattr(self.klt, name, timed_call)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.klt, name, fn)
+
+    def totals(self):
+        torch.cuda.synchronize()
+        out = {}
+        for name, e0, e1 in self.events:
+            ms, n = out.get(name, (0.0, 0))
+            out[name] = (ms + e0.elapsed_time(e1), n + 1)
+        return out
+
+
+def _object_outcome(trk, g, tid):
+    """The tracked object against the truth: velocity, per-keyframe
+    positions (by frame), the median position error and the displacement
+    error over the observed span (object poses live in the ground world,
+    which is the truth's here)."""
+    ch = trk.dynamic.chains.get(tid)
+    if ch is None or not ch.kf_pose:
+        return None
+    m = trk.map
+    pos = {int(m.kf_frame_id[k]): p[:3, 3].astype(np.float64) for k, p in ch.kf_pose.items()}
+    errs = [float(np.linalg.norm(p - g["true_obj"][f][:3, 3])) for f, p in pos.items()]
+    f0, f1 = min(pos), max(pos)
+    disp = pos[f1] - pos[f0]
+    disp_true = g["true_obj"][f1][:3, 3] - g["true_obj"][f0][:3, 3]
+    return dict(velocity=ch.velocity.astype(np.float64), pos=pos, median_err=float(np.median(errs)),
+                disp_err=float(np.abs(disp - disp_true).max()), n_kf=len(pos), history=len(ch.velocity_history),
+                has_local=int(ch.has_local.sum()))
+
+
+def _dynamic_run(trk, inputs, g, tid, W, speed, tag):
+    """Drive a dynamic tracker over `inputs` on the card; print what 13A
+    and 13B print and return (tracked frames, metric ATE, object outcome)."""
+    from cube_slam_tpu_torch.ops import hopper_kernels as hk
+    from cube_slam_tpu_torch.utils import profiler
+
+    N = len(inputs)
+    profiler.reset()
+    profiler.enable()
+    try:
+        hk.edt_launches = 0
+        with _KltTimer() as kt:
+            ms, kind, traj, wall = drive(trk, inputs)
+        launches = hk.edt_launches
+        spans = profiler.aggregated()
+        klt = kt.totals()
+    finally:
+        profiler.disable()
+        profiler.reset()
+    tracked = [f for f, T in traj if T is not None]
+    est = {f: W @ np.linalg.inv(np.asarray(T, dtype=np.float64)) for f, T in traj if T is not None}
+    ate = float(np.sqrt(np.mean([np.sum((est[f][:3, 3] - g["poses"][f][:3, 3]) ** 2) for f in est])))
+    n_kf = int(trk.map.kf_valid.sum())
+    n_kf_frames = kind.count("kf")
+    med = lambda k: statistics.median([t for t, c in zip(ms, kind) if c == k]) if k in kind else float("nan")  # noqa: E731
+    obj = _object_outcome(trk, g, tid)
+    log(f"[{tag}] initialized at frame {kind.index('init') if 'init' in kind else None}; tracked "
+        f"{len(tracked)}/{N}; keyframes {n_kf}; map points {int(trk.map.mp_valid.sum())}; metric ATE {ate:.4f} m "
+        f"(final trajectory in the truth world); loops closed {trk.loops_closed}")
+    if obj is not None:
+        log(f"[{tag}] object: velocity [v, steer] {np.round(obj['velocity'], 5).tolist()} against the truth "
+            f"[{speed}, 0] (m per frame); per-keyframe poses {obj['n_kf']}, velocity updates {obj['history']}, "
+            f"points with object coordinates {obj['has_local']}; median position error {obj['median_err']:.4f} m; "
+            f"displacement error over the observed span {obj['disp_err']:.4f} m")
+    log(f"[{tag}] {N / wall:.3f} frames/s of track() ({wall:.2f} s, host clock, synchronized per frame); "
+        f"tracked non-keyframe frames: median {med('tracked'):.2f} ms ({kind.count('tracked')}); keyframe "
+        f"frames: median {med('kf'):.2f} ms ({n_kf_frames}); untracked frames {kind.count('lost')}")
+    log(f"[{tag}] spans (total ms / calls, ms per keyframe frame): " + "; ".join(
+        f"{k} {spans[k][0]:.1f}/{spans[k][4]}, {spans[k][0] / max(n_kf_frames, 1):.1f}"
+        for k in DYNAMIC_SPANS if k in spans))
+    log(f"[{tag}] KLT on the card (CUDA events): " + ("; ".join(
+        f"{name} {t:.2f} ms in {n} calls ({t / N:.3f} ms and {n / N:.2f} calls per frame)"
+        for name, (t, n) in sorted(klt.items())) or "no call"))
+    log(f"[{tag}] EDT launches: {launches} (the dynamic paths build no detector)")
+    assert launches == 0
+    return tracked, ate, obj, {name: n / N for name, (_, n) in klt.items()}
+
+
+def dynamic_inputs(stereo, seq):
+    """13A's and 13B's renders: phase 11B's orbit (KITTI camera, 1241x376)
+    and phase 6's orbit (TUM camera, 640x480), each with the room box
+    driving along world +x (moving_box_renders, grey levels rounded)."""
+    from cube_slam_tpu_torch.utils import synth
+
+    _, truth_k, K_k = stereo
+    scene_k = synth.SynthSequence(len(truth_k), K=K_k, wh=KITTI_WH).scene
+    kitti = moving_box_renders(scene_k, truth_k, K_k, KITTI_WH, DYNAMIC_KITTI_SPEED, grey=True)
+    scene_r = synth_sequence(seq.num_frames, SLICE_WH).scene
+    rgbd = moving_box_renders(scene_r, seq.poses, seq.K, SLICE_WH, DYNAMIC_RGBD_SPEED, grey=True)
+    return (kitti, K_k), (rgbd, seq.K)
+
+
+def phase13a_dynamic_kitti(dev, inputs):
+    from cube_slam_tpu_torch.slam.kitti import KittiMonoTracker
+    from cube_slam_tpu_torch.slam.system import TrackerConfig
+
+    g, K = inputs
+    H, W = g["frames"][0].shape
+    rows = moving_box_rows(g, DYNAMIC_GATE_TID)
+    n_rows = sum(len(r) > 0 for r in rows)
+    cfg = TrackerConfig(n_features=3000, n_levels=8, max_kf=96, max_mp=12288)
+    trk = KittiMonoTracker(K, (W, H), rows, g["poses"][0], config=cfg, car_prior=g["half"], dynamic=True,
+                           first_depth=g["depths"][0], device=dev)
+    log(f"[dyn-kitti] {len(g['frames'])} frames {W}x{H} of phase 11B's orbit, KITTI intrinsics, 3000 features x 8 "
+        f"levels; the box drives along world +x at {DYNAMIC_KITTI_SPEED} m per frame; offline rows (tracklet "
+        f"{DYNAMIC_GATE_TID}) on {n_rows} frames; car prior = the box's half extents "
+        f"{np.round(g['half'], 4).tolist()}; bootstrap from frame 0's rendered depth")
+    assert n_rows >= DYNAMIC_MIN_ROWS, f"rows on only {n_rows} frames"
+    tracked, ate, obj, _ = _dynamic_run(trk, [(f,) for f in g["frames"]], g, DYNAMIC_GATE_TID, g["poses"][0],
+                                        DYNAMIC_KITTI_SPEED, "dyn-kitti")
+    assert len(tracked) >= TRACKER_MIN_TRACKED * len(g["frames"]), f"tracked only {len(tracked)}"
+    assert trk.mono_scale_initialized and np.isfinite(ate), f"metric ATE {ate}"
+    assert obj is not None and obj["n_kf"] >= 3 and obj["history"] >= 1, "the moving box was not tracked"
+    assert np.isfinite(obj["velocity"]).all()
+
+
+def phase13b_dynamic_rgbd(dev, inputs):
+    from cube_slam_tpu_torch.slam.dynamic import DynamicDetection, DynamicRgbdTracker
+    from cube_slam_tpu_torch.slam.system import TrackerConfig
+
+    g, K = inputs
+    H, W = g["frames"][0].shape
+    dets = moving_box_dets(g, DynamicDetection)
+    cfg = TrackerConfig(n_features=1500, n_levels=8, max_kf=96, max_mp=12288)
+    trk = DynamicRgbdTracker(K, (W, H), cfg, depth_max=RGBD_DEPTH_MAX, ground_Twc0=g["poses"][0], device=dev)
+    log(f"[dyn-rgbd] {len(g['frames'])} frames {W}x{H} of phase 6's orbit, TUM intrinsics, 1500 features x 8 "
+        f"levels, rendered depth, depth_max {RGBD_DEPTH_MAX} m; the box drives along world +x at "
+        f"{DYNAMIC_RGBD_SPEED} m per frame; detections with instance masks on {sum(d is not None for d in dets)} "
+        f"frames")
+    tracked, ate, obj, calls = _dynamic_run(trk, [(f, d, x) for f, d, x in zip(g["frames"], g["depths"], dets)], g,
+                                            0, np.eye(4), DYNAMIC_RGBD_SPEED, "dyn-rgbd")
+    assert len(tracked) >= DEPTH_MIN_TRACKED * len(g["frames"]), f"tracked only {len(tracked)}"
+    assert np.isfinite(ate) and ate < RGBD_ATE_MAX, f"metric ATE {ate}"
+    assert obj is not None and obj["n_kf"] >= 3 and obj["history"] >= 1, "the moving box was not tracked"
+    assert obj["has_local"] > 0 and np.isfinite(obj["velocity"]).all()
+    return calls
+
+
+def _card_cpu(fn, dev):
+    """fn(device) on the card twice and on the CPU, as numpy."""
+    def np_(x):
+        if isinstance(x, (tuple, list)):
+            return [np_(v) for v in x]
+        return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    return np_(fn(dev)), np_(fn(dev)), np_(fn("cpu"))
+
+
+def _same(a, b):
+    if isinstance(a, list):
+        return all(_same(x, y) for x, y in zip(a, b))
+    return np.array_equal(a, b)
+
+
+def _kernels(fn):
+    """Device kernels that one call of fn() launches (torch.profiler)."""
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def phase13c_functions(dev, g_rgbd, calls):
+    """KLT, Harris, the dynamic BA and the offline pipeline card twice vs
+    the CPU on the same inputs; `calls` are 13B's KLT calls per frame."""
+    from cube_slam_tpu_torch.graph.dynamic_ba import dynamic_object_ba
+    from cube_slam_tpu_torch.models import cuboid as cb
+    from cube_slam_tpu_torch.ops import klt
+    from cube_slam_tpu_torch.slam.dynamic import _erode, track_dynamic_object
+    from cube_slam_tpu_torch.utils import geometry as geo
+
+    # Harris on the box and LK of its corners into the next frame (13B's
+    # frames 20 and 21), with the projected-centre flow as the seed
+    f0, f1, mask = g_rgbd["frames"][20], g_rgbd["frames"][21], _erode(g_rgbd["masks"][20])
+    t = lambda x, d: torch.as_tensor(np.ascontiguousarray(x), device=d)  # noqa: E731
+    hz = _card_cpu(lambda d: klt.harris_corners(t(f0, d), max_corners=64, mask=t(mask, d)), dev)
+    xy, valid = hz[2]
+    bb0, bb1 = g_rgbd["bboxes"][20], g_rgbd["bboxes"][21]
+    guess = np.broadcast_to(((bb1[:2] + bb1[2:] / 2) - (bb0[:2] + bb0[2:] / 2)).astype(np.float32), (64, 2)).copy()
+    lk = _card_cpu(lambda d: klt.pyr_lk(t(f0, d), t(f1, d), t(xy, d), t(valid, d), init_flow=t(guess, d),
+                                        max_err=45.0), dev)
+    lk_gap = float(np.abs(lk[0][0] - lk[2][0])[lk[2][1]].max(initial=0.0))
+    k_lk = _kernels(lambda: klt.pyr_lk(t(f0, dev), t(f1, dev), t(xy, dev), t(valid, dev), init_flow=t(guess, dev),
+                                       max_err=45.0))
+    k_hz = _kernels(lambda: klt.harris_corners(t(f0, dev), max_corners=64, mask=t(mask, dev)))
+    per_frame = calls.get("pyr_lk", 0.0) * k_lk + calls.get("harris_corners", 0.0) * k_hz
+    log(f"[dyn-small] harris_corners on 13B's frame 20 (box mask eroded): {int(valid.sum())} corners; card vs CPU "
+        f"same corners: {_same(hz[0], hz[2])}; pyr_lk of them into frame 21: status equal {_same(lk[0][1], lk[2][1])} "
+        f"({int(lk[2][1].sum())} tracked), tracks within {lk_gap:.3g} px (bound {KLT_TRACK_TOL}); card repeats "
+        f"bit-identical: {_same(hz[0], hz[1]) and _same(lk[0], lk[1])}; one pyr_lk call launches {k_lk} kernels "
+        f"and one harris_corners call {k_hz}: ~{per_frame:.0f} KLT kernel launches per 13B frame")
+    assert _same(hz[0], hz[2]) and _same(lk[0][1], lk[2][1]) and lk_gap <= KLT_TRACK_TOL
+    assert _same(hz[0], hz[1]) and _same(lk[0], lk[1])
+
+    # the dynamic BA on tests/test_dynamic_ba.py's scene, every family
+    tcw, stamps, obj_pose, scale, v_true, lp, dp_kf, dp_obj, dp_pt, dp_uv = dynamic_ba_scene()
+    r = np.random.default_rng(1)
+    xi = torch.as_tensor(0.05 * r.normal(size=(len(tcw), 6)), dtype=torch.float32)
+    obj0 = obj_pose @ geo.se3_exp(xi).numpy()
+    lp0 = (lp + 0.05 * r.normal(size=lp.shape)).astype(np.float32)
+    E, n = len(dp_kf), len(tcw)
+    bo_meas = cb.project_onto_image_bbox(cb.Cuboid(t(obj_pose, "cpu"), t(np.tile(scale, (n, 1)), "cpu")),
+                                         t(tcw, "cpu"), t(DYNAMIC_BA_K, "cpu")).numpy()
+
+    def ba(d):
+        a = [tcw, stamps, obj0[None], scale[None], np.array([[0.5, 0.1]], np.float32), lp0, DYNAMIC_BA_K,
+             dp_kf, dp_obj, dp_pt, dp_uv.astype(np.float32), np.ones(E, np.float32), np.ones(E, bool),
+             np.zeros(n - 1, np.int64), np.arange(n - 1), np.arange(1, n), np.ones(n - 1, bool),
+             np.arange(n) == 0, np.ones((1, n), bool), np.ones(1, bool), np.ones(len(lp), bool)]
+        return dynamic_object_ba(*[t(x, d) for x in a], bo_kf=t(np.arange(n), d), bo_obj=t(np.zeros(n, np.int64), d),
+                                 bo_meas=t(bo_meas, d), bo_si=t(np.full(n, 0.5, np.float32), d),
+                                 bo_valid=t(np.ones(n, bool), d), num_iters=15, motion_weight=1.5, fix_rotation=True)
+    out = _card_cpu(ba, dev)
+    gap = max(float(np.abs(x - y).max()) for x, y in zip(out[0][:4], out[2][:4]))
+    log(f"[dyn-small] dynamic_object_ba on tests/test_dynamic_ba.py's scene (points, in-box, motion, bbox; free "
+        f"cameras; fix_rotation): card vs CPU entries within {gap:.3g} (bound {DYNAMIC_BA_TOL}), cost "
+        f"{float(out[0][4]):.6g} / {float(out[2][4]):.6g}, speed {out[0][2][0, 0]:.5f} (truth {v_true}); card "
+        f"repeats bit-identical: {_same(out[0], out[1])}")
+    assert gap <= DYNAMIC_BA_TOL and _same(out[0], out[1])
+
+    # the offline per-object pipeline on tests/test_dynamic_pipeline.py's scene
+    args, kw, true, v_true = dynamic_pipeline_scene()
+    res = _card_cpu(lambda d: [(x.obj_pose_per_frame, x.velocity, x.local_pts, x.n_tracked_pts)
+                               for x in [track_dynamic_object(*args, device=d, **kw)]][0], dev)
+    gap = max(float(np.abs(x - y).max()) for x, y in zip(res[0][:3], res[2][:3]))
+    log(f"[dyn-small] track_dynamic_object on tests/test_dynamic_pipeline.py's scene: {int(res[0][3])} / "
+        f"{int(res[2][3])} points, card vs CPU within {gap:.3g} (bound {DYNAMIC_BA_TOL}), speed {res[0][1][0]:.4f} "
+        f"(truth {v_true}); card repeats bit-identical: {_same(res[0], res[1])}")
+    assert int(res[0][3]) == int(res[2][3]) and gap <= DYNAMIC_BA_TOL and _same(res[0], res[1])
+
+
+def dynamic_outcome(trk, g, tid, W):
+    """A dynamic gate run's tracked frames, keyframes' frames, camera
+    poses in the truth world (Twc) and object outcome."""
+    traj = trk.final_trajectory()
+    m = trk.map
+    return dict(tracked=[f for f, T in traj if T is not None],
+                kf_frames=sorted(int(m.kf_frame_id[k]) for k in m.kf_ids()),
+                Twc={f: W @ np.linalg.inv(np.asarray(T, dtype=np.float64)) for f, T in traj if T is not None},
+                obj=_object_outcome(trk, g, tid))
+
+
+def dynamic_gaps(a, b):
+    """How far two dynamic gate runs are apart: keyframe count, camera
+    centres and rotation entries on the frames both tracked, the object's
+    positions on the keyframe frames both hold, its speed and steering."""
+    common = [f for f in a["Twc"] if f in b["Twc"]]
+    oa, ob = a["obj"], b["obj"]
+    objs = [f for f in oa["pos"] if f in ob["pos"]]
+    return dict(keyframes=abs(len(a["kf_frames"]) - len(b["kf_frames"])),
+                centre=max(float(np.linalg.norm(a["Twc"][f][:3, 3] - b["Twc"][f][:3, 3])) for f in common),
+                rotation=max(float(np.abs(a["Twc"][f][:3, :3] - b["Twc"][f][:3, :3]).max()) for f in common),
+                object=max(float(np.linalg.norm(oa["pos"][f] - ob["pos"][f])) for f in objs),
+                speed=abs(float(oa["velocity"][0] - ob["velocity"][0])),
+                steer=abs(float(oa["velocity"][1] - ob["velocity"][1])))
+
+
+def dynamic_gate_run(name, device, tmp=None, modules=None):
+    """One run of a dynamic gate, with the port's slam modules or with the
+    (dynamic, kitti, system) modules given (device None for the JAX
+    package's): "rgbd" through DynamicRgbdTracker, "kitti" through
+    KittiMonoTracker(dynamic=True).track on the float renders,
+    "kitti-entry" through run_kitti_sequence(dynamic=True, output_prefix in
+    `tmp`) with the tracker built as tests/test_kitti_dynamic.py builds it
+    (dynamic_gate_bootstrap); every tracker's local-BA fold forced
+    synchronous. Returns the outcome (and for "kitti-entry" the written
+    files' text)."""
+    if modules is None:
+        from cube_slam_tpu_torch.slam import dynamic, kitti, system
+    else:
+        dynamic, kitti, system = modules
+    dev = {} if device is None else dict(device=device)
+    g = dynamic_gate_scene()
+    cfg = system.TrackerConfig(**DYNAMIC_GATE_CONFIG)
+    if name == "rgbd":
+        trk = dynamic.DynamicRgbdTracker(KITTI_GATE_K, KITTI_GATE_WH, cfg, depth_max=DYNAMIC_GATE_RGBD_DEPTH_MAX,
+                                         ground_Twc0=g["poses"][0], **dev)
+        trk._impl.__class__ = _always_fold(type(trk._impl))
+        dets = moving_box_dets(g, dynamic.DynamicDetection)
+        for f, d, x in zip(g["frames"], g["depths"], dets):
+            trk.track(f, d, x)
+        return dynamic_outcome(trk, g, 0, np.eye(4))
+    cls = dynamic_gate_bootstrap(_always_fold(kitti.KittiMonoTracker), g["depths"][0])
+    rows = moving_box_rows(g, DYNAMIC_GATE_TID)
+    if name == "kitti":
+        trk = cls(KITTI_GATE_K, KITTI_GATE_WH, rows, g["poses"][0], config=cfg, use_truth_trackid=True, dynamic=True,
+                  **dev)
+        for f in g["frames"]:
+            trk.track(f)
+        trk.flush()
+        return dynamic_outcome(trk, g, DYNAMIC_GATE_TID, g["poses"][0])
+    prefix = os.path.join(tmp, f"dyn_{len(os.listdir(tmp))}")
+    seq = MemoryKittiSequence(g["frames"], KITTI_GATE_K, rows)
+    orig = kitti.KittiMonoTracker
+    kitti.KittiMonoTracker = cls
+    try:
+        trk = kitti.run_kitti_sequence(seq, g["poses"][0], config=cfg, dynamic=True, output_prefix=prefix, **dev)
+    finally:
+        kitti.KittiMonoTracker = orig
+    out = dynamic_outcome(trk, g, DYNAMIC_GATE_TID, g["poses"][0])
+    out["files"] = {ext: open(prefix + f"_{ext}.txt").read()
+                    for ext in ("tum", "kitti", "cuboids", "cuboids_dynamic", "cuboids_velocity")}
+    return out
+
+
+def phase13c_gates(dev):
+    """The two dynamic gates card twice vs CPU."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("rgbd", "kitti-entry"):
+            bound = DYNAMIC_GATE_BOUNDS[name]
+            g1, g2, c = (dynamic_gate_run(name, d, tmp) for d in (dev, dev, "cpu"))
+            gaps = dynamic_gaps(g1, c)
+            repeat = (g1["tracked"] == g2["tracked"] and g1["kf_frames"] == g2["kf_frames"]
+                      and all(np.array_equal(g1["Twc"][f], g2["Twc"][f]) for f in g1["Twc"])
+                      and all(np.array_equal(g1["obj"]["pos"][f], g2["obj"]["pos"][f]) for f in g1["obj"]["pos"])
+                      and np.array_equal(g1["obj"]["velocity"], g2["obj"]["velocity"])
+                      and g1.get("files") == g2.get("files"))
+            log(f"[dyn-small] {name} gate, 12 frames 320x240 through "
+                f"{'DynamicRgbdTracker' if name == 'rgbd' else 'run_kitti_sequence(dynamic=True)'} on the card "
+                f"(twice) and on the CPU: tracked {g1['tracked']} / {c['tracked']}; keyframes at frames "
+                f"{g1['kf_frames']} / {c['kf_frames']}; object velocity {np.round(g1['obj']['velocity'], 5).tolist()} "
+                f"/ {np.round(c['obj']['velocity'], 5).tolist()}, median position error "
+                f"{g1['obj']['median_err']:.4f} / {c['obj']['median_err']:.4f} m; gaps "
+                + ", ".join(f"{k} {v:.4g}" for k, v in gaps.items())
+                + " (bounds " + ", ".join(f"{k} {bound[k]}" for k in gaps)
+                + f"); two card runs bit-identical: {repeat}")
+            if name == "kitti-entry":
+                log(f"[dyn-small] kitti dynamic files, card / CPU: {g1['files']['cuboids_dynamic'].split()} / "
+                    f"{c['files']['cuboids_dynamic'].split()}; velocity rows {g1['files']['cuboids_velocity'].split()} "
+                    f"/ {c['files']['cuboids_velocity'].split()}")
+                n_dyn = [len(x["files"]["cuboids_dynamic"].splitlines()) for x in (g1, c)]
+                assert n_dyn[0] == n_dyn[1] >= 3, f"dynamic rows {n_dyn}"
+            assert g1["tracked"] == c["tracked"], f"{name}: tracked frames differ card vs CPU"
+            for k, v in gaps.items():
+                assert bound[k] is None or v <= bound[k], f"{name}: {k} differs card vs CPU by {v} (bound {bound[k]})"
+            assert repeat, f"{name}: two card runs differ"
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1867,6 +2469,13 @@ def main():
     timed("phase 12 B", phase12b_kitti_stereo, dev, kitti)
     timed("phase 12 C", phase12c_kitti_card_vs_cpu, dev)
     log(f"[time] phase 12: {time.perf_counter() - t12:.1f} s")
+    t13 = time.perf_counter()
+    dyn_kitti, dyn_rgbd = timed("phase 13 inputs", dynamic_inputs, stereo, seq)
+    timed("phase 13 A", phase13a_dynamic_kitti, dev, dyn_kitti)
+    calls = timed("phase 13 B", phase13b_dynamic_rgbd, dev, dyn_rgbd)
+    timed("phase 13 C functions", phase13c_functions, dev, dyn_rgbd[0], calls)
+    timed("phase 13 C gates", phase13c_gates, dev)
+    log(f"[time] phase 13: {time.perf_counter() - t13:.1f} s")
     log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s (limit 1200 s)")
 
     log(json.dumps({"kernels": [{

@@ -1,8 +1,8 @@
 """KITTI-mode monocular and stereo object SLAM — the reference's headline
 configuration.
 
-PyTorch counterpart of cube_slam_tpu/slam/kitti.py, static objects only
-(`dynamic=True` raises). The re-design of the mono-KITTI pipeline
+PyTorch counterpart of cube_slam_tpu/slam/kitti.py. The re-design of the
+mono-KITTI pipeline
 (Examples/Monocular/mono_kitti.cc:37-58 + Tracking_util.cc:25-206 +
 Tracking.cc:1553-1580, :1925-1961, :2433-2663):
 
@@ -15,7 +15,11 @@ Tracking.cc:1553-1580, :1925-1961, :2433-2663):
 * monocular scale initialization from object depth
   (MonoObjDepthInitialization, Tracking.cc:852-930),
 * ground-plane scale recovery every few keyframes (Tracking.cc:2433-2663),
-* camera + point + object local BA with fix-scale cuboid vertices.
+* camera + point + object local BA with fix-scale cuboid vertices,
+* with dynamic=True, the mono_dynamic configuration: tracklets become
+  MOVING objects (slam/dynamic.py) with per-keyframe poses, a
+  planar-bicycle velocity and a joint dynamic BA with the window cameras
+  free; no KLT features, no object-depth anchor, no ground recovery.
 
 The scale anchor, the depth bootstraps and the ground recovery rewrite the
 map, the pose and the motion model on the host in numpy, as in the JAX
@@ -38,8 +42,6 @@ from .system import MonocularTracker, ObjectSlamTracker, StereoTracker, TrackerC
 logger = logging.getLogger("cube_slam_tpu_torch")
 
 KITTI_CAR_PRIOR = (1.9420, 0.8143, 0.7631)
-
-_DYNAMIC = "dynamic=True: dynamic objects are not ported yet (slice 6)"
 
 
 def _ray_cuboid_depth(K, xy, local_pose, scale):
@@ -91,9 +93,18 @@ class KittiMonoTracker(ObjectSlamTracker):
         frame (constant camera-to-ground mount). firstframe_depth_init
         bootstraps the map from the first frame's object depth;
         first_depth (an (H, W) metric depth image of the first frame) from
-        that image. dynamic=True (moving objects) is not ported yet."""
-        if dynamic or dyn_manager is not None:
-            raise NotImplementedError(_DYNAMIC)
+        that image.
+
+        dynamic=True runs the reference's mono_dynamic configuration:
+        every tracklet becomes a MOVING object with per-keyframe poses, a
+        planar-bicycle velocity, and motion + bbox edges in a joint dynamic
+        BA with the window cameras free (Tracking.cc:2144-2425 +
+        Optimizer.cc:1537-2573, launch/mono_dynamic.launch flag set:
+        ba_dyna_pt_obj_cam=false, use_dynamic_klt_features=false). Keypoints
+        inside the tracklets' boxes are kept out of the static map; the
+        object-depth anchor and ground recovery do not run. dyn_manager
+        replaces the default DynamicObjectManager; frame_stamps gives the
+        motion model its times (frame ids otherwise)."""
         # MonocularTracker's constructor, not ObjectSlamTracker's: the KITTI
         # mode reads offline cuboids and builds no detector
         MonocularTracker.__init__(self, K, img_wh, config, device=device)
@@ -116,6 +127,12 @@ class KittiMonoTracker(ObjectSlamTracker):
         # true scale
         self.first_depth = first_depth
         self.dynamic = None
+        if dynamic:
+            from .dynamic import DynamicObjectManager
+
+            # SLAM world = first camera frame; the motion model runs over
+            # the z-up ground frame via the InitToGround alignment
+            self.dynamic = dyn_manager or DynamicObjectManager(world_T_slam=self.init_to_ground, device=self.device)
 
     # ------------------------------------------------------------------
     def track(self, gray):
@@ -131,6 +148,8 @@ class KittiMonoTracker(ObjectSlamTracker):
         ObjectSlamTracker.reset(self)
         self.ground = GroundScaleEstimator(self.ground.cfg, device=self.device)
         self._anchor_scales = []
+        if self.dynamic is not None:
+            self.dynamic.chains = {}
 
     def _rows_for(self, frame_id):
         if self.offline is not None and 0 <= frame_id < len(self.offline):
@@ -138,6 +157,43 @@ class KittiMonoTracker(ObjectSlamTracker):
             if rows is not None and np.size(rows):
                 return np.atleast_2d(rows)
         return None
+
+    def _dyn_dets_for(self, frame_id):
+        """Offline rows -> DynamicDetections (camera-frame cuboid pose +
+        bbox, no instance mask — use_dynamic_klt_features=false)."""
+        from .dynamic import DynamicDetection
+
+        rows = self._rows_for(frame_id)
+        if rows is None:
+            return []
+        dets = []
+        for r in rows:
+            tid = int(r[12]) if len(r) > 12 else -1
+            if tid < 0:
+                continue
+            local_pose = _local_pose(self.init_to_ground, r)[0].astype(np.float32)
+            if float(local_pose[2, 3]) <= 0.5:
+                continue
+            dets.append(DynamicDetection(tracklet_id=tid, local_pose=local_pose, scale=self.car_prior,
+                                         bbox=np.asarray(r[7:11], dtype=np.float32), mask=None))
+        return dets
+
+    def _suppress_dev(self, gray):
+        """Dynamic mode: drop keypoints inside moving-car boxes from the
+        static pipeline (KeysStatic via bbox rectangles — no masks in the
+        offline-txt configuration), as a device mask."""
+        if self.dynamic is None:
+            return MonocularTracker._suppress_dev(self, gray)
+        rows = self._rows_for(self.frame_id)
+        if rows is None:
+            return MonocularTracker._suppress_dev(self, gray)
+        g = np.asarray(gray)
+        mask = np.zeros(g.shape, dtype=np.float32)
+        H, W = g.shape
+        for r in rows:
+            x, y, w, h = int(max(r[7], 0)), int(max(r[8], 0)), int(r[9]), int(r[10])
+            mask[y:min(y + h, H), x:min(x + w, W)] = 1.0
+        return self._t(mask)
 
     # ------------------------------------------------------------------
     def _try_initialize(self, feats):
@@ -152,6 +208,16 @@ class KittiMonoTracker(ObjectSlamTracker):
         small and near-coplanar, which makes frame-to-frame tracking
         fragile (the reference gates it on N > 500 features); the two-view
         init + per-keyframe object-depth anchor is the robust path."""
+        if self.dynamic is not None:
+            # moving-object pixels must not seed STATIC map points — the
+            # init path bypasses the tracking step's suppression mask
+            rows_d = self._rows_for(self.frame_id)
+            if rows_d is not None:
+                xy, v = feats.xy, feats.valid.copy()
+                for r in rows_d:
+                    x, y, w, h = r[7:11]
+                    v &= ~((xy[:, 0] >= x) & (xy[:, 0] <= x + w) & (xy[:, 1] >= y) & (xy[:, 1] <= y + h))
+                feats.restrict_valid(v)
         if self.first_depth is not None:
             # truth-depth bootstrap (mono_firstframe_truth_depth_init,
             # Tracking.cc StereoInitialization-style): metric from frame 0
@@ -228,7 +294,11 @@ class KittiMonoTracker(ObjectSlamTracker):
         It rewrites the map, the pose and the motion model on the host; its
         callers (track() after initialization, and the keyframe step, which
         MonocularTracker._resolve follows with a bump) bump the map
-        version."""
+        version. Moving objects cannot anchor a static depth ratio
+        (mono_allframe_Obj_depth_init=false, mono_dynamic.launch:44): with
+        dynamic=True it does nothing."""
+        if self.dynamic is not None:
+            return
         rows = self._rows_for(self.frame_id)
         if rows is None:
             return
@@ -303,6 +373,16 @@ class KittiMonoTracker(ObjectSlamTracker):
             # would fight the reprojection edges and corrupt the in-box
             # points the anchor needs — defer the object pipeline
             return
+        if self.dynamic is not None:
+            # mono_dynamic configuration: tracklets are MOVING objects with
+            # per-KF poses + velocity; no static-landmark association, and
+            # no ground-height scale recovery (enable_ground_height_scale=
+            # false, mono_dynamic.launch:47 — a mid-run rescale would
+            # de-calibrate the metric per-KF object poses already committed
+            # to the chains). The dynamic BA rewrites window cameras on the
+            # host; MonocularTracker._resolve bumps the map after this step.
+            self._dynamic_keyframe(k)
+            return
         _offline_objects(self, k)
         # ground-scale recovery cadence (Tracking.cc:2433-2663)
         with profiler.span("kitti.ground"):
@@ -315,6 +395,21 @@ class KittiMonoTracker(ObjectSlamTracker):
                 self.velocity[:3, 3] *= s
                 self.n_scale_recoveries += 1
                 logger.info("ground scale recovery #%d: x%.3f", self.n_scale_recoveries, s)
+
+    def _dynamic_keyframe(self, k):
+        """The dynamic part of a keyframe step: this frame's tracklet rows
+        become per-keyframe object poses, then the dynamic BA runs over the
+        window with static anchor edges."""
+        from .dynamic import static_anchor_edges
+
+        dets = self._dyn_dets_for(self.frame_id)
+        stamp = (float(self.frame_stamps[self.frame_id])
+                 if self.frame_stamps is not None and self.frame_id < len(self.frame_stamps)
+                 else float(self.frame_id))
+        with profiler.span("dyn.keyframe"):
+            self.dynamic.on_keyframe(self.map, k, dets, stamp=stamp, K=self.K, img_wh=self.img_wh)
+        with profiler.span("dyn.ba"):
+            self.dynamic.run_dynamic_ba(self.map, self.K, static_edges_fn=lambda w: static_anchor_edges(self.map, w))
 
 
 def _offline_objects(trk, k):
@@ -388,7 +483,8 @@ def _write_outputs(tracker, seq, n, output_prefix):
     poses = [T for _, T in tracker.final_trajectory()]
     ser.save_trajectory_tum(output_prefix + "_tum.txt", stamps, poses)
     ser.save_trajectory_kitti(output_prefix + "_kitti.txt", poses)
-    ser.save_cuboids_txt(output_prefix + "_cuboids.txt", tracker.objects.store)
+    ser.save_cuboids_txt(output_prefix + "_cuboids.txt", tracker.objects.store,
+                         dynamic_manager=getattr(tracker, "dynamic", None))
 
 
 def run_kitti_stereo_sequence(seq, init_to_ground, baseline, config=None,
@@ -420,16 +516,16 @@ def run_kitti_sequence(seq, init_to_ground, config=None, max_frames=None,
     """Drive a KittiSequence (or any object with its `num_frames`, `K`,
     `times`, `gray` and `offline_cuboids`) end to end — the mono_kitti.cc
     main loop — and optionally write the trajectories and the optimized
-    cuboids under `output_prefix`. Returns the tracker. dynamic=True (the
-    mono_dynamic configuration) is not ported yet."""
-    if dynamic:
-        raise NotImplementedError(_DYNAMIC)
+    cuboids under `output_prefix` (with dynamic=True, the mono_dynamic
+    configuration, also the moving objects' per-keyframe poses and
+    velocities: `_cuboids_dynamic.txt` and `_cuboids_velocity.txt`).
+    Returns the tracker."""
     n = seq.num_frames if max_frames is None else min(seq.num_frames, max_frames)
     offline = seq.offline_cuboids(use_truth_trackid=use_truth_trackid)
     first = seq.gray(0)
     img_wh = (first.shape[1], first.shape[0])
     tracker = KittiMonoTracker(seq.K, img_wh, offline, init_to_ground, config=config,
-                               use_truth_trackid=use_truth_trackid, ground_cfg=ground_cfg,
+                               use_truth_trackid=use_truth_trackid, ground_cfg=ground_cfg, dynamic=dynamic,
                                frame_stamps=seq.times, device=device)
     tracker.track(first)
     for i in range(1, n):

@@ -16,6 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -241,6 +242,23 @@ class FrameFeatures:
                     lambda s, v: setattr(s, "_desc", v))
     valid = property(lambda s: s._get("valid"),
                      lambda s, v: setattr(s, "_valid", v))
+
+    def restrict_valid(self, valid):
+        """Replace the keypoint validity mask (host bool (N,)) in every copy
+        a later step reads: the host array (the bundle is brought to the
+        host first, so a later lazy read cannot restore the old mask), the
+        device `valid` and the packed bundle's column 4."""
+        valid = np.asarray(valid, dtype=bool)
+        self._get("xy")
+        self._valid = valid.copy()
+        if self.dev is not None:
+            v = torch.as_tensor(valid, device=self.dev["valid"].device)
+            dev = dict(self.dev, valid=v)
+            if "packed" in dev:
+                packed = dev["packed"].clone()
+                packed[:, 4] = v.to(packed.dtype)
+                dev["packed"] = packed
+            self.dev = dev
 
     def set_mp_dev(self, kp_mp_dev):
         """Keep the kp->map-point table on the device; host .mp reads it on

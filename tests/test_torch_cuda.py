@@ -160,3 +160,32 @@ def test_lsd_lines_repeat_bit_for_bit_on_the_card(cuda):
         a = lsd.detect_lines(g, min_length=15.0, max_lines=128)
         b = lsd.detect_lines(g, min_length=15.0, max_lines=128)
         assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_klt_and_harris_card_vs_cpu(cuda):
+    """ops/klt.py on the card against the CPU on the dynamic gate's frames
+    2 and 3 (chip_smoke.dynamic_gate_scene): Harris on the eroded box mask
+    gives the same corners, and pyr_lk of them with the projected-centre
+    flow as the seed the same status and tracks within
+    chip_smoke.KLT_TRACK_TOL pixels (the window sums add in another order
+    on the card)."""
+    from torch_parity_utils import cs
+
+    from cube_slam_tpu_torch.ops import klt
+    from cube_slam_tpu_torch.slam.dynamic import _erode
+
+    g = cs.dynamic_gate_scene()
+    f0, f1, mask = g["frames"][2], g["frames"][3], _erode(g["masks"][2])
+    b0, b1 = g["bboxes"][2], g["bboxes"][3]
+    guess = np.broadcast_to(((b1[:2] + b1[2:] / 2) - (b0[:2] + b0[2:] / 2)).astype(np.float32), (48, 2)).copy()
+
+    def run(d):
+        t = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=d)  # noqa: E731
+        xy, valid = klt.harris_corners(t(f0), max_corners=48, mask=t(mask))
+        pts, status = klt.pyr_lk(t(f0), t(f1), xy, valid, init_flow=t(guess), max_err=45.0)
+        return [x.cpu().numpy() for x in (xy, valid, pts, status)]
+
+    c, k = run("cpu"), run(cuda)
+    assert np.array_equal(k[0], c[0]) and np.array_equal(k[1], c[1]) and c[1].sum() >= 10
+    assert np.array_equal(k[3], c[3]) and c[3].sum() >= 10
+    assert np.abs(k[2] - c[2])[c[3]].max() <= cs.KLT_TRACK_TOL

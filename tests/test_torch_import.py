@@ -29,12 +29,13 @@ SLICE3 = ["ops.ransac", "slam.ground", "slam.kitti", "slam.objects", "graph.obje
 SLICE4 = ["slam.sim3", "slam.loop_closing", "utils.serialization"]
 SLICE5A = ["ops.stereo", "slam.system"]
 SLICE5B = ["slam.kitti"]
+SLICE6 = ["ops.klt", "graph.dynamic_ba", "slam.dynamic"]
 
 
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "cube_slam_tpu_torch.models.detector" in mods and len(mods) >= 26
-    assert not {"cube_slam_tpu_torch." + m for m in SLICE2 + SLICE3 + SLICE4 + SLICE5A + SLICE5B} - set(mods)
+    assert not {"cube_slam_tpu_torch." + m for m in SLICE2 + SLICE3 + SLICE4 + SLICE5A + SLICE5B + SLICE6} - set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -49,11 +50,11 @@ def test_every_module_imports_without_jax():
     assert out.stdout.strip() == "[]"
 
 
-@pytest.mark.parametrize("module", SLICE4 + SLICE5A + SLICE5B)
+@pytest.mark.parametrize("module", SLICE4 + SLICE5A + SLICE5B + SLICE6)
 def test_loop_slice_module_imports_alone_without_jax(module):
-    """Each module of the loop-closing slice, of the depth inputs and of the
-    KITTI trackers, imported alone in a fresh interpreter, pulls in neither
-    JAX nor the JAX package."""
+    """Each module of the loop-closing slice, of the depth inputs, of the
+    KITTI trackers and of the dynamic objects, imported alone in a fresh
+    interpreter, pulls in neither JAX nor the JAX package."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('cube_slam_tpu_torch.{module}')\n"
@@ -92,6 +93,7 @@ def test_tracker_on_cuda_raises_without_a_card():
 def _entry_point(name):
     """Each entry point built with no device argument."""
     from cube_slam_tpu_torch.models.detector import CuboidDetector
+    from cube_slam_tpu_torch.slam.dynamic import DynamicObjectManager, DynamicRgbdTracker, track_dynamic_object
     from cube_slam_tpu_torch.slam.kitti import KittiMonoTracker, KittiStereoTracker
     from cube_slam_tpu_torch.slam.object_slam import ObjectSlamDemo, optimize_graph
     from cube_slam_tpu_torch.slam.system import (MonocularTracker, ObjectSlamTracker, RgbdTracker, StereoTracker,
@@ -109,6 +111,18 @@ def _entry_point(name):
         return StereoTracker(np.eye(3), (320, 240), 0.12, TrackerConfig(), depth_max=20.0)
     if name == "KittiMonoTracker":
         return KittiMonoTracker(np.eye(3), (320, 240), [], np.eye(4), TrackerConfig())
+    if name == "KittiMonoTracker(dynamic=True)":
+        return KittiMonoTracker(np.eye(3), (320, 240), [], np.eye(4), TrackerConfig(), dynamic=True).dynamic
+    if name == "DynamicRgbdTracker":
+        return DynamicRgbdTracker(np.eye(3), (320, 240), TrackerConfig(), depth_max=8.0)
+    if name == "DynamicObjectManager":
+        return DynamicObjectManager()
+    if name == "track_dynamic_object":
+        # the smallest call: one 32x32 frame with no object pixels, which
+        # runs Harris and the triangulation and then finds too few points
+        f = np.zeros((32, 32), np.float32)
+        eye = np.eye(4)[None]
+        return track_dynamic_object([f], [f > 0], eye, [0.0], eye, np.ones(3), np.eye(3), max_pts=4)
     if name == "KittiStereoTracker":
         return KittiStereoTracker(np.eye(3), (320, 240), 0.54, [], np.eye(4), TrackerConfig())
     if name == "CuboidDetector":
@@ -123,13 +137,18 @@ def _entry_point(name):
 
 @pytest.mark.parametrize("name", ["ObjectSlamDemo", "MonocularTracker", "ObjectSlamTracker", "RgbdTracker",
                                   "StereoTracker", "KittiMonoTracker", "KittiStereoTracker", "CuboidDetector",
-                                  "CuboidDetector.from_config", "optimize_graph"])
+                                  "CuboidDetector.from_config", "optimize_graph", "KittiMonoTracker(dynamic=True)",
+                                  "DynamicRgbdTracker", "DynamicObjectManager", "track_dynamic_object"])
 def test_entry_points_default_to_the_card(name):
     """Without a device the entry points run on the card: where there is
     one they land on it, and where there is none they raise instead of
     running on the CPU."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
+            _entry_point(name)
+        return
+    if name == "track_dynamic_object":  # it ran on the card up to its own check
+        with pytest.raises(RuntimeError, match="too few dynamic point observations"):
             _entry_point(name)
         return
     built = _entry_point(name)

@@ -264,16 +264,32 @@ def test_create_keyframe_on_a_carried_map(gate, i):
 
 
 @pytest.mark.parametrize("where", ["tracker", "entry_point"])
-def test_dynamic_mode_raises(where):
-    """Dynamic objects are not ported yet: dynamic=True (or a dynamic
-    manager) raises NotImplementedError before anything is built."""
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        if where == "tracker":
-            tk.KittiMonoTracker(tpu.GATE_A_K, (320, 240), [], np.eye(4), dynamic=True, device="cpu")
-        else:
-            tk.run_kitti_sequence(object(), np.eye(4), dynamic=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tk.KittiMonoTracker(tpu.GATE_A_K, (320, 240), [], np.eye(4), dyn_manager=object(), device="cpu")
+def test_dynamic_mode_raises(where, tmp_path):
+    """dynamic=True (the mono_dynamic configuration) and a dynamic manager
+    are taken: the tracker builds its DynamicObjectManager on its own device,
+    with the first camera's ground alignment, keeps a given manager, and
+    drops the chains on reset; the entry point runs the mono dynamic gate
+    (chip_smoke.dynamic_gate_scene through run_kitti_sequence) and writes
+    the dynamic files beside the trajectories."""
+    from cube_slam_tpu_torch.slam import dynamic as tdyn
+
+    if where == "tracker":
+        G = tpu.gate_a_sequence(2)[1][0]
+        t = tk.KittiMonoTracker(tpu.GATE_A_K, (320, 240), [], G, dynamic=True, device="cpu")
+        assert isinstance(t.dynamic, tdyn.DynamicObjectManager) and t.dynamic.device.type == "cpu"
+        assert np.array_equal(t.dynamic.G, G) and t.dynamic.fix_rotation and not t.dynamic.ba_pt_obj_cam
+        t.dynamic.chains[7] = object()
+        t.reset()
+        assert t.dynamic.chains == {}
+        mgr = tdyn.DynamicObjectManager(device="cpu")
+        assert tk.KittiMonoTracker(tpu.GATE_A_K, (320, 240), [], G, dynamic=True, dyn_manager=mgr,
+                                   device="cpu").dynamic is mgr
+        assert tk.KittiMonoTracker(tpu.GATE_A_K, (320, 240), [], G, device="cpu").dynamic is None
+    else:
+        out = tpu.cs.dynamic_gate_run("kitti-entry", "cpu", str(tmp_path))
+        assert out["tracked"] == list(range(tpu.cs.DYNAMIC_GATE_FRAMES)) and out["obj"]["n_kf"] >= 3
+        assert len(out["files"]["cuboids_dynamic"].splitlines()) == out["obj"]["n_kf"]
+        assert out["files"]["cuboids_velocity"].strip()
 
 
 def _outcome(trk):

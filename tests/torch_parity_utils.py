@@ -124,9 +124,12 @@ def carry_tracker(jtrk, device="cpu"):
     must have been folded. A JAX RgbdTracker or StereoTracker becomes the
     port's class of the same name, with its depth range, first pose,
     baseline and pending depth image."""
+    from cube_slam_tpu.slam import dynamic as jdyn
     from cube_slam_tpu.slam import system as jsys
     from cube_slam_tpu_torch.slam import system as tsys
 
+    if isinstance(jtrk, jdyn.DynamicRgbdTracker):
+        return carry_dynamic_rgbd_tracker(jtrk, device)
     cfg = tsys.TrackerConfig(**vars(jtrk.cfg))
     if not isinstance(jtrk, jsys.RgbdTracker):
         return _carry_base(tsys.MonocularTracker(jtrk.K, jtrk.img_wh, cfg, device=device), jtrk, device)
@@ -308,8 +311,41 @@ def carry_kitti_tracker(jtrk, device="cpu"):
         t._anchor_scales = list(jtrk._anchor_scales)
         for name in ("mono_scale_initialized", "n_scale_recoveries"):
             setattr(t, name, getattr(jtrk, name))
+        if jtrk.dynamic is not None:
+            t.dynamic = carry_dynamic_manager(jtrk.dynamic, device)
     _carry_base(t, jtrk, device)
     t.objects.load_state(vars(jtrk.objects))
+    return t
+
+
+def carry_dynamic_manager(jmgr, device="cpu"):
+    """A port DynamicObjectManager in the state of a JAX one
+    (DynamicObjectManager.load_state): its chains (points, liveness, object
+    coordinates, spawn keyframes, per-keyframe snapshots, poses, stamps,
+    frames and boxes, velocity and its history), the previous frame and
+    detections, and its settings."""
+    from cube_slam_tpu_torch.slam import dynamic as tdyn
+
+    t = tdyn.DynamicObjectManager(device=device)
+    t.load_state({k: v for k, v in vars(jmgr).items() if k != "device"})
+    return t
+
+
+def carry_dynamic_rgbd_tracker(jtrk, device="cpu"):
+    """A port DynamicRgbdTracker in the state of a JAX one: its inner RGBD
+    tracker as carry_tracker carries one, its manager
+    (carry_dynamic_manager), the pending detections and the anchor cap."""
+    from cube_slam_tpu_torch.slam import dynamic as tdyn
+    from cube_slam_tpu_torch.slam import system as tsys
+
+    ji = jtrk._impl
+    t = tdyn.DynamicRgbdTracker(ji.K, ji.img_wh, tsys.TrackerConfig(**vars(ji.cfg)), depth_max=ji.depth_max,
+                                manager=carry_dynamic_manager(jtrk.dynamic, device),
+                                static_anchor_cap=jtrk.static_anchor_cap, device=device)
+    t._impl.init_Tcw = ji.init_Tcw.copy()
+    t._impl._pending_depth = _copy(ji._pending_depth)
+    _carry_base(t._impl, ji, device)
+    t._pending_dyn = [tdyn.DynamicDetection(**{k: _copy(v) for k, v in vars(d).items()}) for d in jtrk._pending_dyn]
     return t
 
 
@@ -340,3 +376,42 @@ def _carry_base(t, jtrk, device):
 
 def _copy(v):
     return v.copy() if isinstance(v, np.ndarray) else v
+
+
+# The dynamic gates: the moving box of tests/test_dynamic_tracker.py (RGBD,
+# instance masks, KLT) and tests/test_kitti_dynamic.py (monocular KITTI,
+# offline rows, first-frame depth bootstrap), 12 frames 320x240; their
+# scene, configuration and bounds are chip_smoke.py's (phase 13C runs the
+# same gates on the card).
+DYNAMIC_GATE_CONFIG = cs.DYNAMIC_GATE_CONFIG
+DYNAMIC_GATE_RGBD_DEPTH_MAX = cs.DYNAMIC_GATE_RGBD_DEPTH_MAX
+DYNAMIC_GATE_TID = cs.DYNAMIC_GATE_TID
+DYNAMIC_GATE_HALF = cs.DYNAMIC_GATE_HALF
+dynamic_gate = cs.dynamic_gate_scene
+dynamic_gate_dets = cs.moving_box_dets
+
+
+def dynamic_rgbd_tracker(dyn, g, device=None, manager=None):
+    """The RGBD gate's DynamicRgbdTracker of either package (`dyn` is the
+    package's slam.dynamic module), its inner tracker's local-BA fold
+    forced synchronous."""
+    import importlib
+
+    system = importlib.import_module(dyn.__name__.rsplit(".", 1)[0] + ".system")
+    kw = {} if device is None else dict(device=device)
+    t = dyn.DynamicRgbdTracker(GATE_A_K, (320, 240), system.TrackerConfig(**DYNAMIC_GATE_CONFIG),
+                               depth_max=DYNAMIC_GATE_RGBD_DEPTH_MAX, manager=manager, ground_Twc0=g["poses"][0], **kw)
+    t._impl.__class__ = sync_fold(type(t._impl))
+    return t
+
+
+def dynamic_kitti_tracker(kitti, g, device=None, **kw):
+    """The mono dynamic gate's KittiMonoTracker(dynamic=True) of either
+    package (`kitti` is the package's slam.kitti module): the offline rows,
+    the box's half extents as the car prior, frame 0's rendered depth as
+    the bootstrap, its local-BA fold forced synchronous."""
+    dev = {} if device is None else dict(device=device)
+    return sync_fold(kitti.KittiMonoTracker)(
+        GATE_A_K, (320, 240), cs.moving_box_rows(g, DYNAMIC_GATE_TID), g["poses"][0],
+        config=kitti.TrackerConfig(**DYNAMIC_GATE_CONFIG), use_truth_trackid=True, car_prior=DYNAMIC_GATE_HALF,
+        dynamic=True, first_depth=g["depths"][0], **dev, **kw)

@@ -62,6 +62,43 @@ step in the pose returned, the motion model, the keyframe decision, the
 anchors, the tracked inliers and the associations handed to the next
 frame (from which the device tracker state re-seeds).
 
+The dynamic gates (`--gate dynamic-rgbd|dynamic-kitti|dynamic-kitti-entry`,
+torch_parity_utils.dynamic_gate: the moving box of
+tests/test_dynamic_tracker.py and tests/test_kitti_dynamic.py, 12 frames
+320x240) run the same way: JAX's DynamicRgbdTracker or
+KittiMonoTracker(dynamic=True) (its fold forced synchronous) once as it is
+and once per perturbation, then the port from scratch. dynamic-kitti-entry
+is the run phase 13C makes through run_kitti_sequence(dynamic=True): the
+frames as uint8 grey levels, 0.1 s apart, the bootstrap from frame 0's
+depth and the box's half extents as the car prior. Each run
+prints its tracked frames and keyframes, the largest gaps from JAX's
+unperturbed run in the cameras (centres in the truth world, rotation
+entries) and in the object (its per-keyframe positions on the keyframes
+both runs hold, the speed, the steering angle, the median position error
+against the truth and the displacement over the observed span), and the
+last line the radius and diameter. With `--steps` a dynamic gate goes one
+dynamic BA at a time instead: at each run_dynamic_ba of JAX's run, the
+port carried from JAX's state and 24 copies of JAX's state with the
+chains' per-keyframe translations, velocities and the keyframe
+translations moved by up to 1 ulp take the same step; each prints its
+gaps from JAX's step in the cameras, the object poses, the speed, the
+steering angle and the final cost (relative), and the last line the
+radius over all steps. `--two-stage` takes the RGBD gate's final JAX
+manager and map and solves one dynamic BA with the point edges on
+(ba_pt_obj_cam: the two-stage solve with chi-square pruning) at point-edge
+capacities 1024, 40 and 20, in JAX, in the port carried from that state,
+and in 32 copies perturbed as `--steps` perturbs; gaps in the cameras, the
+object's points in the world (gauge-free), its motion since its first
+keyframe and its velocity. `--kf-steps` does the same for the whole keyframe
+step of the dynamic tracker (_create_keyframe: the static keyframe step and
+its local BA, then the manager's keyframe snapshot and dynamic BA), from
+JAX's state at each keyframe in the port (torch_parity_utils.carry_tracker
+/ carry_kitti_tracker) and in 16 copies with the map points, the keyframe
+translations, the chains' per-keyframe translations and velocities moved
+by up to 1 ulp; gaps in the keyframe poses, the map points (the largest,
+the median and the 90th percentile over the points both keep), the
+object's per-keyframe poses and its velocity.
+
 Each takes 2-10 minutes on the CPU.
 """
 
@@ -317,9 +354,368 @@ def frames_mode(n_perturb):
             J.track(gray)
 
 
+DYNAMIC_GATES = ("dynamic-rgbd", "dynamic-kitti", "dynamic-kitti-entry")
+
+
+def dynamic_tracker(gate, pkg, g, device=None, manager=None):
+    """The dynamic gate's tracker of the package whose slam module is
+    `pkg` (its fold forced synchronous) and the per-frame track() inputs."""
+    import importlib
+
+    dyn = importlib.import_module(pkg.__name__ + ".dynamic")
+    kitti = importlib.import_module(pkg.__name__ + ".kitti")
+    if gate == "dynamic-rgbd":
+        t = tpu.dynamic_rgbd_tracker(dyn, g, device=device, manager=manager)
+        dets = tpu.dynamic_gate_dets(g, dyn.DynamicDetection)
+        return t, [(f, d, x) for f, d, x in zip(g["frames"], g["depths"], dets)]
+    kw = {} if manager is None else dict(dyn_manager=manager)
+    t = tpu.dynamic_kitti_tracker(kitti, g, device=device, **kw)
+    if gate == "dynamic-kitti-entry":
+        t.frame_stamps = 0.1 * np.arange(len(g["frames"]))
+        return t, [(tpu.cs.kitti_grey(f),) for f in g["frames"]]
+    return t, [(f,) for f in g["frames"]]
+
+
+def dynamic_outcome(trk, g, gate):
+    """A dynamic gate run's outcome: tracked frames, keyframes' frames,
+    camera centres and rotations (truth world), and the object: its
+    per-keyframe positions by frame, velocity, median position error and
+    displacement over the observed span."""
+    tid = 0 if gate == "dynamic-rgbd" else tpu.DYNAMIC_GATE_TID
+    W = np.eye(4) if gate == "dynamic-rgbd" else g["poses"][0]
+    entries = [(f, np.asarray(T, dtype=np.float64)) for f, T in trk.final_trajectory() if T is not None]
+    Twc = {f: W @ np.linalg.inv(T) for f, T in entries}
+    m = trk.map
+    out = dict(tracked=[f for f, _ in entries], kf_frames=sorted(int(m.kf_frame_id[k]) for k in m.kf_ids()),
+               Twc=Twc, obj={}, velocity=None, median_err=None, disp=None,
+               metric_ate_m=float(np.sqrt(np.mean([np.sum((Twc[f][:3, 3] - g["poses"][f][:3, 3]) ** 2)
+                                                   for f in Twc]))))
+    ch = trk.dynamic.chains.get(tid)
+    if ch is not None and ch.kf_pose:
+        out["obj"] = {int(m.kf_frame_id[k]): p[:3, 3].astype(np.float64) for k, p in ch.kf_pose.items()}
+        out["velocity"] = ch.velocity.astype(np.float64)
+        out["median_err"] = float(np.median([np.linalg.norm(p - g["true_obj"][f][:3, 3])
+                                             for f, p in out["obj"].items()]))
+        f0, f1 = min(out["obj"]), max(out["obj"])
+        out["disp"] = out["obj"][f1] - out["obj"][f0]
+    return out
+
+
+def dynamic_gaps(out, ref):
+    common = [f for f in out["Twc"] if f in ref["Twc"]]
+    objs = [f for f in out["obj"] if f in ref["obj"]]
+    have = out["velocity"] is not None and ref["velocity"] is not None
+    return dict(
+        tracked=int(out["tracked"] != ref["tracked"]), keyframes=abs(len(out["kf_frames"]) - len(ref["kf_frames"])),
+        centre=max((float(np.linalg.norm(out["Twc"][f][:3, 3] - ref["Twc"][f][:3, 3])) for f in common), default=0.0),
+        rotation=max((float(np.abs(out["Twc"][f][:3, :3] - ref["Twc"][f][:3, :3]).max()) for f in common),
+                     default=0.0),
+        object=max((float(np.linalg.norm(out["obj"][f] - ref["obj"][f])) for f in objs), default=0.0),
+        object_kfs=abs(len(out["obj"]) - len(ref["obj"])),
+        speed=abs(out["velocity"][0] - ref["velocity"][0]) if have else None,
+        steer=abs(out["velocity"][1] - ref["velocity"][1]) if have else None,
+        median_err=abs(out["median_err"] - ref["median_err"]) if have else None,
+        disp=float(np.abs(out["disp"] - ref["disp"]).max()) if have else None,
+        metric_ate=abs(out["metric_ate_m"] - ref["metric_ate_m"]))
+
+
+def _worst(pairs):
+    worst = {}
+    for a, b in pairs:
+        for k, v in dynamic_gaps(a, b).items():
+            if v is not None:
+                worst[k] = max(worst.get(k, 0.0), float(v))
+    return worst
+
+
+def dynamic_report(name, out, ref):
+    print(json.dumps(dict(run=name, tracked=out["tracked"], kf_frames=out["kf_frames"],
+                          velocity=None if out["velocity"] is None else out["velocity"].tolist(),
+                          median_err=out["median_err"], metric_ate_m=out["metric_ate_m"],
+                          gap_to_jax=dynamic_gaps(out, ref))), flush=True)
+
+
+def dynamic_spread(gate, n_perturb, at):
+    """The whole dynamic gate: JAX unperturbed, JAX perturbed, the port."""
+    g = tpu.dynamic_gate()
+    outs = []
+    for i, kind in enumerate([None] + perturbations(n_perturb)):
+        J, inputs = dynamic_tracker(gate, jslam, g)
+        hook = None if kind is None else (lambda t, f, kind=kind: perturb(t, kind))
+        _run_dynamic(J, inputs, hook, at)
+        outs.append(dynamic_outcome(J, g, gate))
+        dynamic_report("jax" if kind is None else f"jax, {kind}" + (", at every keyframe" if at == "keyframes" else ""),
+                       outs[-1], outs[0])
+    P, inputs = dynamic_tracker(gate, tslam, g, device="cpu")
+    _run_dynamic(P, inputs, None, at)
+    dynamic_report("port", dynamic_outcome(P, g, gate), outs[0])
+    print(json.dumps(dict(radius=_worst((o, outs[0]) for o in outs[1:]),
+                          diameter=_worst((outs[i], outs[j]) for i in range(len(outs)) for j in range(i)),
+                          runs=len(outs))), flush=True)
+
+
+def _run_dynamic(trk, inputs, hook, at):
+    """Track `inputs`; hook(trk, f) after the initialization and, with
+    at == "keyframes", after each keyframe step (its fold applied first)."""
+    for f, args in enumerate(inputs):
+        was = trk.state
+        trk.track(*args)
+        if hook is None:
+            continue
+        if was == "NOT_INITIALIZED" and trk.state == "OK":
+            hook(trk, f)
+        elif at == "keyframes" and trk.state == "OK" and trk.last_kf_frame_id == f:
+            trk._apply_pending_map()
+            hook(trk, f)
+    trk.flush()
+
+
+def _nudge(a, r):
+    step = r.integers(-1, 2, size=a.shape)
+    return np.where(step > 0, np.nextafter(a, np.float32(np.inf)),
+                    np.where(step < 0, np.nextafter(a, np.float32(-np.inf)), a)).astype(np.float32)
+
+
+def dynamic_steps(gate, n_perturb):
+    """Each dynamic BA of JAX's run on the gate: JAX's step, the port's from
+    the carried state and n_perturb 1-ulp perturbed JAX copies."""
+    from cube_slam_tpu.slam import dynamic as jdyn
+    from cube_slam_tpu_torch.slam import dynamic as tdyn
+    from cube_slam_tpu_torch.slam import state as tstate
+
+    costs = {}
+
+    def capture(mod, key):
+        orig = mod.dynamic_object_ba
+
+        def wrapped(*a, **k):
+            out = orig(*a, **k)
+            costs[key] = float(out[4])
+            return out
+        mod.dynamic_object_ba = wrapped
+
+    capture(jdyn, "jax")
+    capture(tdyn, "port")
+
+    def state(mgr, m):
+        return (m.kf_tcw.copy(), {tid: ({k: v.copy() for k, v in ch.kf_pose.items()}, ch.velocity.copy())
+                                  for tid, ch in mgr.chains.items()})
+
+    def gaps_of(a, b, ca, cb):
+        pose = [np.abs(a[1][t][0][k] - b[1][t][0][k]).max() for t in a[1] for k in a[1][t][0]]
+        return dict(cam=float(np.abs(a[0] - b[0]).max()), pose=float(max(pose, default=0.0)),
+                    speed=float(max((abs(a[1][t][1][0] - b[1][t][1][0]) for t in a[1]), default=0.0)),
+                    steer=float(max((abs(a[1][t][1][1] - b[1][t][1][1]) for t in a[1]), default=0.0)),
+                    cost_rel=abs(ca / cb - 1.0) if cb else 0.0)
+
+    worst_jax, worst_port = {}, {}
+
+    class Rec(jdyn.DynamicObjectManager):
+        def run_dynamic_ba(self, m, K, static_edges_fn=None):
+            perturbed = []
+            for s in range(n_perturb):
+                c, mc = copy.deepcopy(self), copy.deepcopy(m)
+                r = np.random.default_rng(s)
+                for ch in c.chains.values():
+                    for k, p in ch.kf_pose.items():
+                        p[:3, 3] = _nudge(p[:3, 3], r)
+                    ch.velocity = _nudge(ch.velocity, r)
+                k = mc.kf_ids()
+                mc.kf_tcw[k, :3, 3] = _nudge(mc.kf_tcw[k, :3, 3], r)
+                w = jdyn.DynamicObjectManager.run_dynamic_ba(c, mc, K,
+                                                             static_edges_fn=lambda w: jdyn.static_anchor_edges(mc, w))
+                perturbed.append((w, state(c, mc), costs.pop("jax", 0.0)))
+            port, pm = tpu.carry_dynamic_manager(self), tstate.map_state_from_arrays(vars(m))
+            wp = port.run_dynamic_ba(pm, K, static_edges_fn=lambda w: tdyn.static_anchor_edges(pm, w))
+            w = super().run_dynamic_ba(m, K, static_edges_fn=static_edges_fn)
+            if w is None:
+                return w
+            ref, cref = state(self, m), costs.pop("jax")
+            gp = gaps_of(state(port, pm), ref, costs.pop("port"), cref)
+            gj = [gaps_of(st, ref, c, cref) for ww, st, c in perturbed if ww == w]
+            for d, gs in ((worst_port, [gp]), (worst_jax, gj)):
+                for gg in gs:
+                    for kk, v in gg.items():
+                        d[kk] = max(d.get(kk, 0.0), v)
+            print(json.dumps(dict(step=int(m.kf_frame_id[w[-1]]), same_window=wp == w, port=gp,
+                                  jax_radius={kk: max(gg[kk] for gg in gj) for kk in gp})), flush=True)
+            return w
+
+    g = tpu.dynamic_gate()
+    J, inputs = dynamic_tracker(gate, jslam, g, manager=Rec(**({} if gate == "dynamic-rgbd"
+                                                               else dict(world_T_slam=g["poses"][0]))))
+    for args in inputs:
+        J.track(*args)
+    print(json.dumps(dict(steps_radius=worst_jax, port_worst=worst_port)), flush=True)
+
+
+def _copy_dynamic(trk, gate, g):
+    """A deep copy of a JAX dynamic gate tracker. DynamicRgbdTracker's inner
+    class closes over its own outer tracker, so its copy is a new tracker
+    given copies of the state."""
+    if gate != "dynamic-rgbd":
+        return copy.deepcopy(trk)
+    c, _ = dynamic_tracker(gate, jslam, g)
+    c._impl.__dict__.update(copy.deepcopy(trk._impl.__dict__))
+    c.dynamic = copy.deepcopy(trk.dynamic)
+    c._pending_dyn = trk._pending_dyn
+    return c
+
+
+def dynamic_kf_steps(gate, n_perturb):
+    """Each keyframe step of JAX's dynamic tracker from its state: the
+    port's and the perturbed JAX copies' gaps from JAX's step."""
+    from cube_slam_tpu.slam import state as jstate
+    from cube_slam_tpu_torch.slam import state as tstate
+
+    fields = ("xy", "level", "angle", "desc", "valid")
+
+    def state(t):
+        mgr = t.dynamic
+        return (t.map.kf_tcw.copy(), t.map.mp_pos.copy(), t.map.mp_valid.copy(),
+                {tid: ({k: v.copy() for k, v in ch.kf_pose.items()}, ch.velocity.copy())
+                 for tid, ch in mgr.chains.items()})
+
+    def gaps_of(a, b):
+        pose = [np.abs(a[3][t][0][k] - b[3][t][0][k]).max() for t in b[3] for k in b[3][t][0] if k in a[3][t][0]]
+        vel = [np.abs(a[3][t][1] - b[3][t][1]) for t in b[3]]
+        both = a[2] & b[2]
+        mp = np.abs(a[1] - b[1])[both].max(axis=1) if both.any() else np.zeros(1)
+        return dict(kf_tcw=float(np.abs(a[0] - b[0]).max()), mp_pos=float(mp.max()),
+                    mp_pos_median=float(np.median(mp)), mp_pos_p90=float(np.percentile(mp, 90)),
+                    mp_valid=int((a[2] != b[2]).sum()), obj_pose=float(max(pose, default=0.0)),
+                    speed=float(max((v[0] for v in vel), default=0.0)),
+                    steer=float(max((v[1] for v in vel), default=0.0)))
+
+    worst_jax, worst_port = {}, {}
+
+    def hooked(base):
+        class Hooked(base):
+            def _create_keyframe(self, feats, fid=None):
+                trk = outer[0]
+                h = {k: getattr(feats, k).copy() for k in fields}
+                mp = feats.mp.copy()
+                port = tpu.carry_kitti_tracker(trk) if gate != "dynamic-rgbd" else tpu.carry_tracker(trk)
+                port_impl = port._impl if gate == "dynamic-rgbd" else port
+                port_impl.__class__ = tpu.sync_fold(type(port_impl))
+                copies = []
+                for s_ in range(n_perturb):
+                    c = _copy_dynamic(trk, gate, g)
+                    r = np.random.default_rng(s_)
+                    m = c.map
+                    ids = np.where(m.mp_valid)[0]
+                    m.mp_pos[ids] = _nudge(m.mp_pos[ids], r)
+                    k = m.kf_ids()
+                    m.kf_tcw[k, :3, 3] = _nudge(m.kf_tcw[k, :3, 3], r)
+                    for ch in c.dynamic.chains.values():
+                        for kk, p in ch.kf_pose.items():
+                            p[:3, 3] = _nudge(p[:3, 3], r)
+                        ch.velocity = _nudge(ch.velocity, r)
+                    c._bump_map()
+                    copies.append(c)
+                port_impl._create_keyframe(tstate.FrameFeatures(**{k: v.copy() for k, v in h.items()}, mp=mp.copy()),
+                                           fid=fid)
+                super()._create_keyframe(feats, fid=fid)
+                ref = state(trk)
+                gp = gaps_of(state(port), ref)
+                gj = []
+                for c in copies:
+                    f_c = jstate.FrameFeatures(**{k: v.copy() for k, v in h.items()}, mp=mp.copy())
+                    if gate == "dynamic-rgbd":
+                        c._impl._create_keyframe(f_c, fid=fid)  # its own class: the step of its own manager
+                    else:
+                        base._create_keyframe(c, f_c, fid=fid)
+                    gj.append(gaps_of(state(c), ref))
+                for d, gs in ((worst_port, [gp]), (worst_jax, gj)):
+                    for gg in gs:
+                        for kk, v in gg.items():
+                            d[kk] = max(d.get(kk, 0), v)
+                print(json.dumps(dict(step=fid, port=gp, jax_radius={kk: max(gg[kk] for gg in gj) for kk in gp})),
+                      flush=True)
+        return Hooked
+
+    g = tpu.dynamic_gate()
+    outer = []
+    J, inputs = dynamic_tracker(gate, jslam, g)
+    outer.append(J)
+    if gate == "dynamic-rgbd":
+        base = type(J._impl)
+        J._impl.__class__ = hooked(base)
+    else:
+        base = type(J)
+        J.__class__ = hooked(base)
+    for args in inputs:
+        J.track(*args)
+    print(json.dumps(dict(kf_steps_radius=worst_jax, port_worst=worst_port)), flush=True)
+
+
+def two_stage_state(mgr, m):
+    """The gauge-free outcome of a dynamic BA: keyframe poses, each chain's
+    points with object coordinates in the world at each keyframe, its
+    motion since its first keyframe, and its velocity."""
+    out = {}
+    for tid, ch in mgr.chains.items():
+        ks = sorted(ch.kf_pose)
+        pts = ch.local[ch.has_local]
+        out[tid] = ({k: pts @ ch.kf_pose[k][:3, :3].T + ch.kf_pose[k][:3, 3] for k in ks},
+                    {k: ch.kf_pose[k][:3, 3] - ch.kf_pose[ks[0]][:3, 3] for k in ks}, ch.velocity.copy())
+    return m.kf_tcw.copy(), out
+
+
+def two_stage_gaps(a, b):
+    (ta, ca), (tb, cb) = a, b
+    return dict(cam=float(np.abs(ta - tb).max()),
+                world=float(max(np.abs(ca[t][0][k] - cb[t][0][k]).max() for t in cb for k in cb[t][0])),
+                motion=float(max(np.abs(ca[t][1][k] - cb[t][1][k]).max() for t in cb for k in cb[t][1])),
+                speed=float(max(abs(ca[t][2][0] - cb[t][2][0]) for t in cb)),
+                steer=float(max(abs(ca[t][2][1] - cb[t][2][1]) for t in cb)))
+
+
+def dynamic_two_stage(n_perturb):
+    """One dynamic BA with point edges from the RGBD gate's final state."""
+    from cube_slam_tpu.slam import dynamic as jdyn
+    from cube_slam_tpu_torch.slam import dynamic as tdyn
+    from cube_slam_tpu_torch.slam import state as tstate
+
+    g = tpu.dynamic_gate()
+    J, inputs = dynamic_tracker("dynamic-rgbd", jslam, g)
+    for args in inputs:
+        J.track(*args)
+    J._apply_pending_map()
+    radius = {}
+    for cap in (1024, 40, 20):
+        base = copy.deepcopy(J.dynamic)
+        base.ba_pt_obj_cam, base.max_dp_edges = True, cap
+
+        def solve(mgr, m, fn):
+            mgr.run_dynamic_ba(m, J.K, static_edges_fn=lambda w: fn(m, w))
+            return two_stage_state(mgr, m)
+
+        ref = solve(copy.deepcopy(base), copy.deepcopy(J.map), jdyn.static_anchor_edges)
+        port = solve(tpu.carry_dynamic_manager(base), tstate.map_state_from_arrays(vars(J.map)),
+                     tdyn.static_anchor_edges)
+        gj = []
+        for s_ in range(n_perturb):
+            c, mc = copy.deepcopy(base), copy.deepcopy(J.map)
+            r = np.random.default_rng(s_)
+            for ch in c.chains.values():
+                for k, p in ch.kf_pose.items():
+                    p[:3, 3] = _nudge(p[:3, 3], r)
+                ch.velocity = _nudge(ch.velocity, r)
+            k = mc.kf_ids()
+            mc.kf_tcw[k, :3, 3] = _nudge(mc.kf_tcw[k, :3, 3], r)
+            gj.append(two_stage_gaps(solve(c, mc, jdyn.static_anchor_edges), ref))
+        rad = {kk: max(gg[kk] for gg in gj) for kk in gj[0]}
+        for kk, v in rad.items():
+            radius[kk] = max(radius.get(kk, 0.0), v)
+        print(json.dumps(dict(cap=cap, port=two_stage_gaps(port, ref), jax_radius=rad)), flush=True)
+    print(json.dumps(dict(two_stage_radius=radius)), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--gate", choices=["mono", "stereo", "mono-entry", "stereo-entry"], default="mono")
+    ap.add_argument("--gate", choices=["mono", "stereo", "mono-entry", "stereo-entry", *DYNAMIC_GATES],
+                    default="mono")
     ap.add_argument("--bootstrap", choices=["object", "depth"], default="object", help="the mono gate's")
     ap.add_argument("--perturbations", type=int, default=12)
     ap.add_argument("--at", choices=["init", "keyframes"], default="init",
@@ -330,7 +726,20 @@ def main():
                     help="perturb just before this frame instead of after each initialization")
     ap.add_argument("--steps", action="store_true", help="only the keyframe steps, 8 perturbations each")
     ap.add_argument("--frames", action="store_true", help="only the per-frame steps, 8 perturbations each")
+    ap.add_argument("--kf-steps", action="store_true", help="a dynamic gate's keyframe steps, 16 perturbations each")
+    ap.add_argument("--two-stage", action="store_true",
+                    help="the RGBD gate's final dynamic BA with point edges on, 32 perturbations")
     args = ap.parse_args()
+    if args.gate in DYNAMIC_GATES:
+        if args.two_stage:
+            dynamic_two_stage(32)
+        elif args.kf_steps:
+            dynamic_kf_steps(args.gate, 16)
+        elif args.steps:
+            dynamic_steps(args.gate, 24)
+        else:
+            dynamic_spread(args.gate, args.perturbations, args.at)
+        return
     if args.steps:
         steps(8)
         return
