@@ -47,10 +47,13 @@ Phases (any failure exits non-zero before a result is printed):
    TRACKER_CENTRE_TOL (RMS) after a Sim3 alignment. The card runs twice,
    and whether the two runs are bit-identical is printed.
 8. the object tracker at full width: ObjectSlamTracker.track(gray, boxes,
-   lines) over the same 58-frame 640x480 orbit at the same preset, with
-   ground_Twc0 the first truth pose, the truth box as the 2D box and the
-   port's LSD lines; the kernel count is reset just before it. Prints the
-   tracker's outcome, each landmark against the true box, the scaled ATE,
+   lines) over the first OBJECT_FRAMES frames of the same 58-frame 640x480
+   orbit (the shortest prefix of at least 30 frames on which the run
+   still promotes a landmark and tracks 0.7 of its frames) at the same
+   preset, with ground_Twc0 the first truth pose, the truth box as the 2D
+   box and the port's LSD lines; the kernel count is reset just before it.
+   Prints each frame's kind, the tracker's outcome, each landmark against
+   the true box, the scaled ATE,
    frames/s and ms per tracked / keyframe frame, the profiler's object
    spans, the EDT launches against the detector calls, and the device
    events of one object BA under torch.profiler.
@@ -136,6 +139,27 @@ Phases (any failure exits non-zero before a result is printed):
    KLT_TRACK_TOL, DYNAMIC_BA_TOL and DYNAMIC_GATE_BOUNDS (the CPU tests'
    bounds), the card runs bit-identical.
 
+14. line features (the reference's line_lbd; no detector, so no EDT
+   launch, checked). A: over phase 6's 58-frame 640x480 orbit,
+   describe_lines_pyramid (2 octaves x 128 lines, LBD descriptors) with
+   detector "lsd" and with "edline" on each frame, and match_lines between
+   consecutive frames: the valid lines per octave and the matches per pair
+   (medians), the share of matches that agree with the truth motion (the
+   matched segment's midpoint, back-projected with the rendered depth
+   through its truth pose and projected into the next frame, within
+   LINE_AGREE_PX of the matched segment's line), beside the JAX package's
+   figures on the same frames (LINE_REFERENCE, tools/line_reference.py);
+   the share may fall at most LINE_AGREE_SLACK below JAX's. Also the ms per
+   frame of detection, LBD and matching (CUDA events) and the kernel
+   launches per describe_lines_pyramid and match_lines call. C: on four of
+   those frames, card (twice) vs CPU: the pyramid's lines end to end, and
+   the line fit on the CPU's support as sets within LINE_SET_TOL px; LBD of
+   the CPU's lines within FDESC_TOL, bits flipped only at near-ties;
+   match_lines equal on the same words; chamfer_l2_3x3 torch.equal on the
+   detector's edge maps of phase 3; pnp_ransac_dlt on
+   tests/test_torch_initializer_pnp.py's scene with the same inliers and Tcw
+   within PNP_TCW_TOL; the two card runs bit-identical.
+
 Each phase prints its seconds, and the last [time] line the whole run's
 against the 1,200 s limit.
 
@@ -163,7 +187,7 @@ SLICE_FRAMES = 58
 SLICE_WH = (640, 480)
 DETECTOR_TOL = 1e-4   # packed top-k fields, kernel vs plain EDT (same card)
 SMALL_TOL = 5e-3      # card vs CPU online run (see tests/test_torch_slice.py)
-TRACKER_MIN_TRACKED = 0.7  # share of the 58 frames phase 6 must track
+TRACKER_MIN_TRACKED = 0.7  # share of its frames phase 6 (and phase 8) must track
 PROFILED_FRAMES = range(20, 26)  # phase 6's frames under torch.profiler
 TRACKER_ATE_MAX = 0.6      # m: phase 6 read 0.2811 on its first card run (JAX: 0.216)
 # phase 7, card vs CPU up to the monocular gauge (the map's scale is free and
@@ -181,6 +205,8 @@ TRACKER_CENTRE_TOL = 5e-3
 # box's distance to the camera (~3 m) halved, and its largest true half
 # extent
 OBJECT_GATE_INIT = 9
+# phase 8 (Gate C) runs this prefix of phase 6's 58-frame orbit
+OBJECT_FRAMES = 30
 OBJECT_LANDMARK_CENTRE_TOL = 1.5
 OBJECT_LANDMARK_SCALE_TOL = 0.6
 # phase 10: the there-and-back orbit of tests/test_full_system.py, and the
@@ -467,7 +493,7 @@ def phase3_detector(dev, seq):
         f"top-k kernel vs plain max |diff| {gap:.3g}; {ms:.3f} ms/frame with the kernel, "
         f"{ms_plain:.3f} ms/frame with the plain EDT (median of 10, CUDA events); "
         f"EDT launches per call {launches}")
-    return edt
+    return edt, edges
 
 
 def phase4_slice(dev, seq):
@@ -733,13 +759,14 @@ def phase7_tracker_card_vs_cpu(dev):
         f"{raw:.3g}; two card runs bit-identical: {repeat}")
 
 
-def _object_frames(seq, dev):
-    """Per frame: the gray image, the truth box rows (or None) and the
-    port's LSD lines (min_length 15, max_lines 128) on `dev`."""
+def _object_frames(seq, dev, n=None):
+    """Per frame of the first `n` (default: all): the gray image, the truth
+    box rows (or None) and the port's LSD lines (min_length 15, max_lines
+    128) on `dev`."""
     from cube_slam_tpu_torch.ops import lsd
 
     out = []
-    for f in range(seq.num_frames):
+    for f in range(seq.num_frames if n is None else n):
         g = seq.gray(f)
         lines, valid = lsd.detect_lines(torch.as_tensor(g, device=dev), min_length=15.0, max_lines=128)
         boxes = seq.yolo_boxes(f)
@@ -791,9 +818,9 @@ def phase8_object_tracker(dev, seq):
     from cube_slam_tpu_torch.slam.system import ObjectSlamTracker, TrackerConfig
     from cube_slam_tpu_torch.utils import profiler
 
-    N = seq.num_frames
+    N = OBJECT_FRAMES
     t0 = time.perf_counter()
-    inputs = _object_frames(seq, dev)
+    inputs = _object_frames(seq, dev, N)
     lines_ms = 1e3 * (time.perf_counter() - t0) / N
     truth = [seq.truth_Twc(f) for f in range(N)]
     cfg = TrackerConfig(n_features=1500, n_levels=8, enable_loop_closing=False)
@@ -817,10 +844,17 @@ def phase8_object_tracker(dev, seq):
     object_ba.local_ba_objects_two_stage = kept
     profiler.reset()
     profiler.enable()
-    promoted = set()
+    promoted, first_promoted = set(), []
+    note = _promoted_into(trk, promoted)
+
+    def after_frame(f):
+        note(f)
+        if promoted and not first_promoted:
+            first_promoted.append(f)
+
     try:
         hk.edt_launches = 0
-        ms, kind, traj, wall = drive(trk, inputs, after_frame=_promoted_into(trk, promoted))
+        ms, kind, traj, wall = drive(trk, inputs, after_frame=after_frame)
         launches = hk.edt_launches
     finally:
         object_ba.local_ba_objects_two_stage = solve
@@ -835,8 +869,11 @@ def phase8_object_tracker(dev, seq):
     lms = _landmarks(trk, seq.scene)
     med = lambda k: statistics.median([t for t, c in zip(ms, kind) if c == k]) if k in kind else float("nan")  # noqa: E731
     mean = lambda k: statistics.mean([t for t, c in zip(ms, kind) if c == k]) if k in kind else float("nan")  # noqa: E731
-    log(f"[objects] {N} frames {seq.wh[0]}x{seq.wh[1]}, 1500 features x 8 levels, truth box, port LSD lines "
-        f"({lines_ms:.2f} ms/frame, outside the clock): initialized at frame {init}; tracked {len(tracked)}/{N}; "
+    log(f"[objects] the first {N} frames of the {seq.num_frames}-frame orbit, {seq.wh[0]}x{seq.wh[1]}, 1500 features "
+        f"x 8 levels, truth box, port LSD lines ({lines_ms:.2f} ms/frame, outside the clock): per frame (- lost, I init, "
+        f"K keyframe, t tracked) {''.join({'lost': '-', 'init': 'I', 'kf': 'K', 'tracked': 't'}[k] for k in kind)}; "
+        f"first landmark alive after frame {first_promoted[0] if first_promoted else None}")
+    log(f"[objects] initialized at frame {init}; tracked {len(tracked)}/{N}; "
         f"keyframes {int(trk.map.kf_valid.sum())}; map points {int(trk.map.mp_valid.sum())}; landmarks "
         f"{len(lms)} alive, {len(promoted)} promoted; mono_scale_initialized {trk.mono_scale_initialized}; "
         f"scaled ATE {ate:.4f} m (final trajectory), {ate_tracked:.4f} m (as tracked)")
@@ -1379,17 +1416,22 @@ def phase10c_loop_card_vs_cpu(dev):
 # phase 11: the depth inputs
 # ---------------------------------------------------------------------------
 
-def depth_sequences(rgbd_frames=SLICE_FRAMES, stereo_frames=STEREO_FRAMES):
-    """11A's and 11B's inputs: ((gray, depth) per frame, truth Twc, K) of the
-    RGBD orbit, and ((left, right) per frame, truth Twc, K) of the stereo
-    orbit. Grey levels are rounded, as phase 6's frames are."""
-    from cube_slam_tpu_torch.utils import synth
-
-    seq = synth_sequence(rgbd_frames, SLICE_WH)
+def rgbd_sequence(frames=SLICE_FRAMES):
+    """((gray, depth) per frame, truth Twc, K) of phase 6's orbit, grey
+    levels rounded as phase 6's frames are: 11A's and 14's inputs."""
+    seq = synth_sequence(frames, SLICE_WH)
     rgbd = []
-    for f in range(rgbd_frames):
+    for f in range(frames):
         img, depth = seq.scene.render(seq.poses[f], seq.K, wh=seq.wh, return_depth=True)
         rgbd.append((np.round(img).astype(np.float32), depth))
+    return rgbd, seq.poses, seq.K
+
+
+def depth_sequences(rgbd_frames=SLICE_FRAMES, stereo_frames=STEREO_FRAMES):
+    """11A's and 11B's inputs: rgbd_sequence(), and ((left, right) per
+    frame, truth Twc, K) of the stereo orbit, rounded alike."""
+    from cube_slam_tpu_torch.utils import synth
+
     sseq = synth.SynthSequence(stereo_frames, K=KITTI_K, wh=KITTI_WH)
     stereo = []
     for Twc_l in sseq.poses:
@@ -1397,7 +1439,7 @@ def depth_sequences(rgbd_frames=SLICE_FRAMES, stereo_frames=STEREO_FRAMES):
         Twc_r[:3, 3] = Twc_l[:3, 3] + Twc_l[:3, :3] @ np.array([KITTI_BASELINE, 0.0, 0.0])
         stereo.append(tuple(np.round(sseq.scene.render(T, sseq.K, wh=sseq.wh)).astype(np.float32)
                             for T in (Twc_l, Twc_r)))
-    return (rgbd, seq.poses, seq.K), (stereo, sseq.poses, sseq.K)
+    return rgbd_sequence(rgbd_frames), (stereo, sseq.poses, sseq.K)
 
 
 def metric_ate(traj, truth):
@@ -2436,6 +2478,298 @@ def phase13c_gates(dev):
             assert repeat, f"{name}: two card runs differ"
 
 
+# ---------------------------------------------------------------------------
+# phase 14: line features (the reference's line_lbd) over phase 6's orbit
+# ---------------------------------------------------------------------------
+
+LINE_OCTAVES = 2
+LINE_MAX = 128          # lines per octave (the JAX functions' defaults)
+LINE_AGREE_PX = 3.0     # a match agrees with the truth motion within this
+LINE_AGREE_SLACK = 0.1  # the card's agreeing share may fall this far below JAX's
+LINE_DETECTORS = ("lsd", "edline")
+LINE_SMALL_FRAMES = (0, 19, 38, 57)  # 14C's frames
+FDESC_TOL = 1e-5       # LBD float descriptors, card vs CPU (and port vs JAX)
+LINE_SET_TOL = 0.05    # px, segment endpoints as sets (tests/test_torch_lsd_lines.py)
+# share of the CPU's segments the card finds within LINE_SET_TOL px: the
+# card's segment sums and atan2 round differently, which flips the few
+# segments that sit on a filter's threshold or at a full top-k's cut
+LINE_MATCH_SHARE = 0.99
+PNP_TCW_TOL = 1e-4
+# JAX's figures on the same 58 frames: tools/line_reference.py (CPU)
+LINE_REFERENCE = {
+    "lsd": dict(valid_per_octave=[128.0, 128.0], matches_per_pair=173, agree=0.9787104622871047),
+    "edline": dict(valid_per_octave=[111.0, 110.5], matches_per_pair=132, agree=0.9472395974979603),
+}
+
+
+def _bits(words):
+    """(N, 8) int32 words -> (N, 256) bits, bit b of word w at 32 w + b."""
+    w = np.asarray(words).view(np.uint32)
+    return ((w[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1).reshape(len(w), 256).astype(bool)
+
+
+def line_agreement(lines_a, lines_b, match, depth_a, Twc_a, Twc_b, K):
+    """How many of frame a's matched lines agree with the truth motion:
+    each matched segment's midpoint, back-projected with frame a's rendered
+    depth through its truth pose and projected into frame b, lies within
+    LINE_AGREE_PX of the matched segment's line there. Numpy in (base
+    pixels), (agreeing, matched) out."""
+    idx = np.where(match >= 0)[0]
+    if not len(idx):
+        return 0, 0
+    H, W = depth_a.shape
+    mid = (lines_a[idx, :2] + lines_a[idx, 2:]) / 2.0
+    px = np.clip(np.round(mid).astype(np.int64), 0, [W - 1, H - 1])
+    z = depth_a[px[:, 1], px[:, 0]].astype(np.float64)
+    xc = np.concatenate([mid, np.ones((len(idx), 1))], axis=1) @ np.linalg.inv(K).T * z[:, None]
+    xw = xc @ Twc_a[:3, :3].T + Twc_a[:3, 3]
+    Tbw = np.linalg.inv(Twc_b)
+    xb = xw @ Tbw[:3, :3].T + Tbw[:3, 3]
+    p = xb @ np.asarray(K, dtype=np.float64).T
+    p = p[:, :2] / np.where(np.abs(p[:, 2:]) > 1e-9, p[:, 2:], 1e-9)
+    seg = lines_b[match[idx]]
+    d = seg[:, 2:] - seg[:, :2]
+    r = p - seg[:, :2]
+    dist = np.abs(d[:, 0] * r[:, 1] - d[:, 1] * r[:, 0]) / np.maximum(np.linalg.norm(d, axis=1), 1e-9)
+    return int(np.sum((dist < LINE_AGREE_PX) & (z > 0) & (xb[:, 2] > 0))), len(idx)
+
+
+def line_figures(descs, matches, rgbd):
+    """Phase 14A's figures from per-frame numpy descriptor dicts (lines,
+    valid, octave) and per-pair (match, dist): the median valid lines per
+    octave, the median matches per consecutive pair, and the pooled share
+    of matches that agree with the truth motion."""
+    frames, poses, K = rgbd
+    per_oct = [statistics.median(int(np.sum(d["valid"] & (d["octave"] == o))) for d in descs)
+               for o in range(LINE_OCTAVES)]
+    n_match, agree = [], 0
+    for f, (m, _) in enumerate(matches):
+        a, n = line_agreement(descs[f]["lines"], descs[f + 1]["lines"], m, frames[f][1], poses[f], poses[f + 1], K)
+        agree += a
+        n_match.append(n)
+    return dict(valid_per_octave=per_oct, matches_per_pair=statistics.median(n_match),
+                agree=agree / max(sum(n_match), 1), matches=sum(n_match))
+
+
+def _timed_describe(img, detector):
+    """describe_lines_pyramid on the card with CUDA events around its
+    detection (the pyramid's line detectors) and its LBD part."""
+    from cube_slam_tpu_torch.ops import lbd, lsd
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    detect = lsd.detect_lines_pyramid
+
+    def timed_detect(*a, **k):
+        ev[0].record()
+        out = detect(*a, **k)
+        ev[1].record()
+        return out
+
+    lsd.detect_lines_pyramid = timed_detect
+    try:
+        d = lbd.describe_lines_pyramid(img, n_octaves=LINE_OCTAVES, detector=detector, max_lines=LINE_MAX)
+    finally:
+        lsd.detect_lines_pyramid = detect
+    ev[2].record()
+    return d, ev
+
+
+def phase14a_lines(dev, rgbd):
+    """describe_lines_pyramid (LSD and EDLine) on each of the 58 frames and
+    match_lines between consecutive frames, on the card."""
+    from cube_slam_tpu_torch.ops import hopper_kernels as hk
+    from cube_slam_tpu_torch.ops import lbd
+
+    frames, poses, K = rgbd
+    H, W = frames[0][0].shape
+    imgs = [torch.as_tensor(g, device=dev) for g, _ in frames]
+    for detector in LINE_DETECTORS:
+        lbd.describe_lines_pyramid(imgs[0], detector=detector)  # warm-up
+        torch.cuda.synchronize()
+        hk.edt_launches = 0
+        descs, events, matches, match_ev = [], [], [], []
+        t0 = time.perf_counter()
+        for f, img in enumerate(imgs):
+            d, ev = _timed_describe(img, detector)
+            descs.append(d)
+            events.append(ev)
+            if f:
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                matches.append(lbd.match_lines(descs[f - 1]["bdesc"], descs[f - 1]["valid"], d["bdesc"], d["valid"]))
+                e1.record()
+                match_ev.append((e0, e1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = hk.edt_launches
+        det_ms = statistics.median(e[0].elapsed_time(e[1]) for e in events)
+        lbd_ms = statistics.median(e[1].elapsed_time(e[2]) for e in events)
+        match_ms = statistics.median(e0.elapsed_time(e1) for e0, e1 in match_ev)
+        k_describe = _kernels(lambda: lbd.describe_lines_pyramid(imgs[1], detector=detector))
+        k_match = _kernels(lambda: lbd.match_lines(descs[0]["bdesc"], descs[0]["valid"], descs[1]["bdesc"],
+                                                   descs[1]["valid"]))
+        np_descs = [{k: d[k].cpu().numpy() for k in ("lines", "valid", "octave")} for d in descs]
+        np_matches = [(m.cpu().numpy(), dd.cpu().numpy()) for m, dd in matches]
+        fig = line_figures(np_descs, np_matches, rgbd)
+        ref = LINE_REFERENCE[detector]
+        log(f"[lines] {detector}: {len(imgs)} frames {W}x{H}, {LINE_OCTAVES} octaves x {LINE_MAX} lines, LBD + "
+            f"match_lines between consecutive frames: valid lines per octave (median) {fig['valid_per_octave']} "
+            f"(JAX {ref['valid_per_octave']}); matches per pair (median) {fig['matches_per_pair']} (JAX "
+            f"{ref['matches_per_pair']}); {fig['matches']} matches, {100 * fig['agree']:.1f}% agree with the truth "
+            f"motion within {LINE_AGREE_PX} px (JAX {ref['agree']})")
+        log(f"[lines] {detector}: per frame (median, CUDA events) detection {det_ms:.2f} ms, LBD {lbd_ms:.2f} ms, "
+            f"matching {match_ms:.3f} ms; {len(imgs) / wall:.2f} frames/s of the whole loop (host clock); "
+            f"{k_describe} kernel launches per describe_lines_pyramid call, {k_match} per match_lines call "
+            f"(torch.profiler); EDT launches {launches}")
+        assert launches == 0, f"{launches} EDT launches on the line path"
+        assert fig["valid_per_octave"][0] > 0 and fig["matches"] > 0, fig
+        if ref["agree"] is not None:
+            assert fig["agree"] >= ref["agree"] - LINE_AGREE_SLACK, (fig["agree"], ref["agree"])
+
+
+def pnp_scene(seed=0, n=80, n_out=12):
+    """tests/test_torch_initializer_pnp.py's PnP problem (the pose from the
+    port's se3_exp): world points, noisy pixels with n_out outliers, the
+    valid mask, K and the true Tcw."""
+    from cube_slam_tpu_torch.utils import geometry as geo
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]], np.float32)
+    Xw = np.stack([rng.uniform(-2, 2, n), rng.uniform(-1.5, 1.5, n), rng.uniform(4, 8, n)], 1)
+    T = geo.se3_exp(torch.tensor([0.05, -0.1, 0.02, 0.3, -0.1, 0.2])).numpy()
+    Xc = Xw @ T[:3, :3].T + T[:3, 3]
+    uv = Xc @ K.T
+    uv = uv[:, :2] / uv[:, 2:3] + rng.normal(0, 0.3, (n, 2))
+    uv[:n_out] += rng.uniform(30, 80, (n_out, 2))
+    valid = np.ones(n, bool)
+    valid[-5:] = False
+    return Xw.astype(np.float32), uv.astype(np.float32), valid, K, T
+
+
+def _line_sets_matched(a, b, tol):
+    """How many of segments `a` a greedy one-to-one match finds in `b`
+    within `tol` px (endpoint max-norm)."""
+    used, n = set(), 0
+    for s_ in a:
+        d = np.abs(b - s_).max(axis=1) if len(b) else np.zeros(0)
+        d[list(used)] = np.inf
+        if len(d) and d.min() <= tol:
+            used.add(int(np.argmin(d)))
+            n += 1
+    return n
+
+
+def _fit_inputs(lsd, detector, img, octave):
+    """The arguments that detect_lines / detect_edlines hand
+    _fit_lines_from_support for `img` at `octave`'s length threshold."""
+    seen = []
+    real = lsd._fit_lines_from_support
+
+    def spy(*a, **k):
+        seen.append((a, k))
+        return real(*a, **k)
+
+    lsd._fit_lines_from_support = spy
+    try:
+        detect = {"lsd": lsd.detect_lines, "edline": lsd.detect_edlines}[detector]
+        detect(img, min_length=15.0 / 2.0 ** octave, max_lines=LINE_MAX)
+    finally:
+        lsd._fit_lines_from_support = real
+    return seen[0]
+
+
+def phase14c_lines_card_vs_cpu(dev, rgbd, edges):
+    """Slice 7's functions on the card twice and on the CPU."""
+    from cube_slam_tpu_torch.ops import distance_transform as dt
+    from cube_slam_tpu_torch.ops import lbd, lsd
+    from cube_slam_tpu_torch.slam import pnp
+
+    frames = rgbd[0]
+    t = lambda x, d: torch.as_tensor(np.ascontiguousarray(x), device=d)  # noqa: E731
+    gaps = dict(fdesc=0.0, untied_bits=0, tied_bits=0)
+    sets = {k: dict(cpu=0, card=0, matched=0, missing=[]) for k in ("end to end", "on the CPU's support")}
+    angles = [0, 0]
+    repeat = True
+
+    def compare(kind, a, b, where):
+        n = _line_sets_matched(a, b, LINE_SET_TOL)
+        c = sets[kind]
+        c["cpu"] += len(a)
+        c["card"] += len(b)
+        c["matched"] += n
+        if n < len(a):
+            c["missing"].append(where)
+
+    for detector in LINE_DETECTORS:
+        prev = None
+        for f in LINE_SMALL_FRAMES:
+            img = frames[f][0]
+            out = _card_cpu(lambda d: [v for k, v in sorted(lsd.detect_lines_pyramid(t(img, d), detector=detector).items())
+                                       if k != "octave_images"], dev)
+            (lb, lo, o, v) = out[2]  # lines_base, lines_octave, octave, valid
+            repeat &= _same(out[0], out[1])
+            pyr_imgs = lsd.detect_lines_pyramid(t(img, "cpu"), detector=detector)["octave_images"]
+            for o_ in range(LINE_OCTAVES):
+                sl = slice(o_ * LINE_MAX, (o_ + 1) * LINE_MAX)
+                compare("end to end", lb[sl][v[sl]], out[0][0][sl][out[0][3][sl]], (detector, f, o_))
+                # the fit on the CPU's support (active pixels, angles, magnitudes) on both devices
+                args, kw = _fit_inputs(lsd, detector, pyr_imgs[o_], o_)
+                fit = _card_cpu(lambda d: list(lsd._fit_lines_from_support(
+                    *[t(x.numpy(), d) if torch.is_tensor(x) else x for x in args], **kw)), dev)
+                repeat &= _same(fit[0], fit[1])
+                compare("on the CPU's support", fit[2][0][fit[2][1]], fit[0][0][fit[0][1]], (detector, f, o_))
+                angle = _card_cpu(lambda d: lsd._lsd_gradients(t(pyr_imgs[o_].numpy(), d))[3], dev)
+                active = args[0].numpy()
+                angles[0] += int(np.sum((angle[0] != angle[2]) & active))
+                angles[1] += int(active.sum())
+            # descriptors of the CPU's lines on both devices, octave by octave as describe_lines_pyramid does
+            pyr_imgs = lsd.detect_lines_pyramid(t(img, "cpu"), detector=detector)["octave_images"]
+            desc = _card_cpu(lambda d: [x for o_ in range(LINE_OCTAVES) for x in lbd.lbd_descriptors(
+                t(pyr_imgs[o_].numpy(), d), t(lo[o_ * LINE_MAX:(o_ + 1) * LINE_MAX], d),
+                t(v[o_ * LINE_MAX:(o_ + 1) * LINE_MAX], d))], dev)
+            repeat &= _same(desc[0], desc[1])
+            for o_ in range(LINE_OCTAVES):
+                fk, bk, fc, bc = desc[0][2 * o_], desc[0][2 * o_ + 1], desc[2][2 * o_], desc[2][2 * o_ + 1]
+                gaps["fdesc"] = max(gaps["fdesc"], float(np.abs(fk - fc).max()))
+                flip = _bits(bk) != _bits(bc)
+                tie = np.abs(fc[:, lbd._PAIR_A] - fc[:, lbd._PAIR_B]) <= FDESC_TOL
+                gaps["untied_bits"] += int(np.sum(flip & ~tie))
+                gaps["tied_bits"] += int(np.sum(flip & tie))
+            words = np.concatenate([desc[2][1], desc[2][3]])
+            if prev is not None:
+                m = _card_cpu(lambda d: list(lbd.match_lines(t(prev[0], d), t(prev[1], d), t(words, d), t(v, d))), dev)
+                repeat &= _same(m[0], m[1])
+                assert _same(m[0], m[2]), "match_lines differs card vs CPU on the same words"
+            prev = (words, v)
+    log(f"[lines-small] frames {list(LINE_SMALL_FRAMES)}, LSD and EDLine pyramids card vs CPU: "
+        + "; ".join(f"{k} the card finds {c['matched']} of the CPU's {c['cpu']} valid lines within {LINE_SET_TOL} px "
+                    f"({c['card']} on the card; (detector, frame, octave) with a line missing: {c['missing']})"
+                    for k, c in sets.items())
+        + f" (bound: {LINE_MATCH_SHARE} of them); {angles[0]} of {angles[1]} support pixels have a level-line angle "
+        f"(atan2) that rounds differently on the card")
+    log(f"[lines-small] LBD on the CPU's lines within {gaps['fdesc']:.3g} (bound "
+        f"{FDESC_TOL}), {gaps['tied_bits']} bits flipped at near-ties and {gaps['untied_bits']} elsewhere (must be 0); "
+        f"match_lines equal on the same words")
+    assert all(c["matched"] >= LINE_MATCH_SHARE * c["cpu"] for c in sets.values()), sets
+    assert gaps["fdesc"] <= FDESC_TOL and gaps["untied_bits"] == 0, gaps
+
+    e = edges.reshape(-1, *edges.shape[-2:]).cpu().numpy()
+    ch = _card_cpu(lambda d: [dt.chamfer_l2_3x3(t(m, d)) for m in e], dev)
+    repeat &= _same(ch[0], ch[1])
+    assert _same(ch[0], ch[2]), "chamfer_l2_3x3 differs card vs CPU"
+    Xw, uv, valid, K, T = pnp_scene()
+    samples = pnp.make_pnp_samples(valid, n_ransac=128, seed=5, k=6)
+    pr = _card_cpu(lambda d: list(pnp.pnp_ransac_dlt(t(Xw, d), t(uv, d), t(valid, d), t(K, d), t(samples, d))), dev)
+    repeat &= _same(pr[0], pr[1])
+    tcw_gap = float(np.abs(pr[0][0] - pr[2][0]).max())
+    log(f"[lines-small] chamfer_l2_3x3 on the detector's {len(e)} edge map(s) {e.shape[1:]}: card == CPU "
+        f"(torch.equal); pnp_ransac_dlt (128 six-point samples): inliers {int(pr[0][2])} / {int(pr[2][2])}, same "
+        f"mask {_same(pr[0][1], pr[2][1])}, Tcw within {tcw_gap:.3g} (bound {PNP_TCW_TOL}), {np.abs(pr[0][0] - T).max():.3g} "
+        f"from the truth; two card runs bit-identical: {repeat}")
+    assert _same(pr[0][1], pr[2][1]) and tcw_gap <= PNP_TCW_TOL
+    assert repeat, "two card runs of slice 7's functions differ"
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2449,7 +2783,7 @@ def main():
     timed("phase 1", phase1_build)
     max_err = timed("phase 2", phase2_edt, dev)
     seq = synth_sequence(SLICE_FRAMES, SLICE_WH)
-    edt = timed("phase 3", phase3_detector, dev, seq)  # the EDT at the main path's own input
+    edt, edges = timed("phase 3", phase3_detector, dev, seq)  # the EDT at the main path's own input
     launches = timed("phase 4", phase4_slice, dev, seq)
     timed("phase 5", phase5_small_reference, dev)
     timed("phase 6", phase6_tracker, dev, seq)
@@ -2476,6 +2810,10 @@ def main():
     timed("phase 13 C functions", phase13c_functions, dev, dyn_rgbd[0], calls)
     timed("phase 13 C gates", phase13c_gates, dev)
     log(f"[time] phase 13: {time.perf_counter() - t13:.1f} s")
+    t14 = time.perf_counter()
+    timed("phase 14 A", phase14a_lines, dev, rgbd)
+    timed("phase 14 C", phase14c_lines_card_vs_cpu, dev, rgbd, edges)
+    log(f"[time] phase 14: {time.perf_counter() - t14:.1f} s")
     log(f"[time] all phases: {time.perf_counter() - t_start:.1f} s (limit 1200 s)")
 
     log(json.dumps({"kernels": [{

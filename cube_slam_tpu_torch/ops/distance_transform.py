@@ -69,3 +69,42 @@ def edt_l2(edges):
         blk = g2[r0:r0 + rows]
         out[r0:r0 + rows] = torch.amin(blk[:, None, :] + sq[None, :, :], dim=-1)
     return torch.sqrt(torch.clamp(out, max=_INF)).reshape(edges.shape)
+
+
+# OpenCV DIST_L2 / DIST_MASK_3 weights (opencv modules/imgproc/src/distransform.cpp)
+_CHAMFER_A = 0.955
+_CHAMFER_B = 1.3693
+
+
+def chamfer_l2_3x3(edge_mask):
+    """OpenCV's 3x3 chamfer DT (approximate L2) of an (H, W) bool mask: two
+    raster scans, for parity experiments against the C++ outputs.
+
+    Rows run forward, then backward (the JAX package's two lax.scan passes).
+    Within a row the recurrence r[j] = min(v[j], r[j-1] + a) is the min-plus
+    running reduction a*j + cummin(v - a*k), one torch.cummin per row."""
+    H, W = edge_mask.shape
+    dev = edge_mask.device
+    start = torch.where(edge_mask, 0.0, _INF)
+    ramp = _CHAMFER_A * torch.arange(W, dtype=torch.float32, device=dev)
+    inf1 = torch.full((1,), _INF, device=dev)
+
+    def lr_pass(v):
+        return ramp + torch.cummin(v - ramp, dim=0).values
+
+    def relax(prev, cur, in_row):
+        # relax from the neighbouring row (vertical + diagonals), then in-row
+        vert = prev + _CHAMFER_A
+        left = torch.cat([inf1, prev[:-1] + _CHAMFER_B])
+        right = torch.cat([prev[1:] + _CHAMFER_B, inf1])
+        return in_row(torch.minimum(torch.minimum(cur, vert), torch.minimum(left, right)))
+
+    fwd = torch.empty_like(start)
+    prev = torch.full((W,), _INF, device=dev)
+    for i in range(H):
+        prev = fwd[i] = relax(prev, start[i], lr_pass)
+    out = torch.empty_like(start)
+    prev = torch.full((W,), _INF, device=dev)
+    for i in range(H - 1, -1, -1):
+        prev = out[i] = relax(prev, fwd[i], lambda v: lr_pass(v.flip(0)).flip(0))
+    return torch.clamp(out, max=_INF)

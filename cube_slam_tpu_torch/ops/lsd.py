@@ -1,6 +1,7 @@
-"""Line-segment detection — the SPMD equivalent of LSD.
+"""Line-segment detection — the SPMD equivalents of LSD and EDLine.
 
-PyTorch counterpart of cube_slam_tpu/ops/lsd.py (`detect_lines`). The
+PyTorch counterpart of cube_slam_tpu/ops/lsd.py (`detect_lines`,
+`detect_edlines` and the octave pyramid `detect_lines_pyramid`). The
 reference bundles von Gioi's LSD (line_lbd/libs/lsd.cpp:440 `flsd`) and wraps
 it in `line_lbd_detect::detect_raw_lines`
 (line_lbd/class/line_lbd_allclass.cpp:125-189). Region growing is
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..graph.ba import _segment_sum
+from . import image as im_ops
 
 _ANGLE_TOL = math.radians(22.5)
 
@@ -97,10 +99,11 @@ def _propagate_labels(labels, angle, active, num_iters):
 
 
 def _fit_lines_from_support(active, angle, mag, min_pixels, min_length, min_density,
-                            max_width_ratio, max_lines, num_prop_iters):
+                            max_width_ratio, max_lines, num_prop_iters, max_abs_width=None):
     """Support mask + per-pixel angle/weight -> (lines (max_lines, 4), valid).
     Angle-constrained connected components, weighted-PCA line fit, geometric
-    filters, top-k by length."""
+    filters, top-k by length. `max_abs_width` (px) bounds the fitted width
+    (EDLine's straightness bound); None leaves it open."""
     H, W = active.shape
     N = H * W
     dev = active.device
@@ -164,6 +167,10 @@ def _fit_lines_from_support(active, angle, mag, min_pixels, min_length, min_dens
         & (width <= torch.clamp(max_width_ratio * length, min=3.0))
         & (density >= min_density)
     )
+    if max_abs_width is not None:
+        # EDLine-style straightness bound: member pixels must stay within a
+        # fixed orthogonal distance of the fitted line (lineFitErrThreshold)
+        good = good & (width <= max_abs_width)
     good[N:] = False  # trash bin
 
     x1 = cx + s_min * ex
@@ -208,3 +215,60 @@ def detect_lines(
     return _fit_lines_from_support(
         active, angle, mag, min_pixels, min_length, min_density,
         max_width_ratio, max_lines, num_prop_iters)
+
+
+def detect_edlines(
+    img,
+    grad_threshold=30.0,
+    min_pixels=12,
+    min_length=15.0,
+    max_fit_width=2.5,
+    max_lines=128,
+    num_prop_iters=32,
+):
+    """EDLine flavor (binary_descriptor.cpp:792-818 EDLineDetector).
+
+    EDLine walks 1-px edge chains drawn from gradient anchors and fits
+    segments with a bounded fit error. Here the NMS-thinned edge map
+    (ops/image.canny_nms, the same anchor/peak criterion) is the support
+    set; angle-constrained components group chain pixels; the fit's
+    minor-axis width bound (max_fit_width, px) enforces EDLine's
+    lineFitErrThreshold. Thin supports make LSD's density and width-ratio
+    filters moot, so they are open."""
+    strong, _weak = im_ops.canny_nms(img, low=grad_threshold, high=grad_threshold)
+    _gx, _gy, mag, angle = _lsd_gradients(img)
+    active = strong & (mag > 1e-3)
+    return _fit_lines_from_support(
+        active, angle, mag, min_pixels, min_length, 0.0, 1e9,
+        max_lines, num_prop_iters, max_abs_width=max_fit_width)
+
+
+def detect_lines_pyramid(img, n_octaves=2, detector="lsd", max_lines=128, min_length=15.0, **kwargs):
+    """Octave-pyramid detection (LSDDetector.cpp:55-73 + the per-octave
+    loop of line_lbd_allclass.cpp:282-337): pyrDown per octave, detection
+    on each octave image with the same metric length threshold
+    (min_length / 2**o octave pixels), endpoints rescaled to base pixels.
+
+    Returns a dict with lines_base (n_octaves*max_lines, 4) in BASE pixels,
+    lines_octave (same shape) in octave pixels, octave (n,) int32, valid
+    (n,) bool, and octave_images, the n_octaves pyramid images (for the
+    per-octave descriptors, the reference's computeLBD_(octaveImages))."""
+    detect = {"lsd": detect_lines, "edline": detect_edlines}[detector]
+    imgs = [img.to(torch.float32)]
+    for _ in range(n_octaves - 1):
+        imgs.append(im_ops.pyr_down(imgs[-1]))
+
+    lines_base, lines_oct, octs, valids = [], [], [], []
+    for o, im in enumerate(imgs):
+        ln, va = detect(im, min_length=min_length / (2.0 ** o), max_lines=max_lines, **kwargs)
+        lines_oct.append(ln)
+        lines_base.append(ln * (2.0 ** o))
+        octs.append(torch.full((max_lines,), o, dtype=torch.int32, device=img.device))
+        valids.append(va)
+    return {
+        "lines_base": torch.cat(lines_base),
+        "lines_octave": torch.cat(lines_oct),
+        "octave": torch.cat(octs),
+        "valid": torch.cat(valids),
+        "octave_images": imgs,
+    }

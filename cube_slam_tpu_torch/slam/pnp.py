@@ -8,7 +8,9 @@ null-space eigendecomposition, the three beta approximations each polished
 by Gauss-Newton on the inter-control-point distance system, Horn alignment
 — evaluated as one batch over all hypotheses, scored in parallel, and the
 winner re-solved on its full inlier set, then polished by the robust pose
-LM (graph/ba.pose_optimization).
+LM (graph/ba.pose_optimization). The JAX package's 6-point DLT variant is
+`pnp_ransac_dlt` (1.5x larger minimal samples than EPnP's 4, and it fails
+on near-planar 6-tuples the EPnP null-space handles).
 
 Eigenvectors are defined up to sign; the beta seeds absorb the sign of
 each null-space vector, so the recovered pose does not depend on it.
@@ -39,6 +41,29 @@ def make_pnp_samples(valid_mask, n_ransac=128, seed=0, k=4):
     return np.stack(
         [rng.choice(idx, size=k, replace=False) for _ in range(n_ransac)]
     ).astype(np.int32)
+
+
+def _dlt_batch(Xw, uv):
+    """Batched DLT: Xw (S, 6, 3), uv (S, 6, 2) NORMALIZED camera coords
+    (K already removed) -> (R (S, 3, 3), t (S, 3)). The null vector's sign
+    and scale are fixed through the determinant of its 3x3 block, then the
+    rotation is orthonormalized by SVD (polar factor, sign-free)."""
+    S = Xw.shape[0]
+    X = torch.cat([Xw, torch.ones_like(Xw[..., :1])], dim=-1)  # (S, 6, 4)
+    zeros = torch.zeros_like(X)
+    u = uv[..., 0:1]
+    v = uv[..., 1:2]
+    r1 = torch.cat([X, zeros, -u * X], dim=-1)  # (S, 6, 12)
+    r2 = torch.cat([zeros, X, -v * X], dim=-1)
+    A = torch.cat([r1, r2], dim=1)  # (S, 12, 12)
+    _, _, vt = torch.linalg.svd(A)
+    P = vt[:, -1].reshape(S, 3, 4)
+    # fix scale/sign: |det(P[:, :3])| = 1, det > 0
+    scale = torch.abs(torch.linalg.det(P[:, :, :3])) ** (1.0 / 3.0)
+    P = P / torch.where(scale > 1e-12, scale, 1e-12)[:, None, None]
+    P = P * torch.sign(torch.linalg.det(P[:, :, :3]))[:, None, None]
+    U, _, Vt = torch.linalg.svd(P[:, :, :3])
+    return U @ Vt, P[:, :, 3]
 
 
 def _horn_rt(A, B, w):
@@ -211,5 +236,28 @@ def pnp_ransac(pts_world, uv, valid, K, sample_idx, inlier_thresh_px=5.0):
     R2, t2, ok2 = _epnp_rt(pts_world[None], xn[None], w_all[None])
     use2 = ok2[0] & (torch.sum(w_all) >= 4)
     Tcw0 = geo.make_T(torch.where(use2, R2[0], R[best]), torch.where(use2, t2[0], t[best]))
+    sqrt_info = torch.ones(uv.shape[0], dtype=torch.float32, device=uv.device)
+    return ba.pose_optimization(Tcw0, K, pts_world, uv, sqrt_info, inl[best])
+
+
+def pnp_ransac_dlt(pts_world, uv, valid, K, sample_idx, inlier_thresh_px=5.0):
+    """6-point DLT-RANSAC, kept for comparison/fallback: pts_world (N, 3),
+    uv (N, 2) pixels, sample_idx (S, 6). The best hypothesis by inlier count
+    is polished by the robust pose LM. Returns (Tcw (4, 4), inlier (N,),
+    n_inlier)."""
+    sample_idx = sample_idx.to(torch.int64)
+    Kinv = torch.linalg.inv(K)
+    uv_h = torch.cat([uv, torch.ones_like(uv[:, :1])], dim=1)
+    xn = (uv_h @ Kinv.T)[:, :2]
+    R, t = _dlt_batch(pts_world[sample_idx], xn[sample_idx])
+
+    pc = pts_world @ R.transpose(-1, -2) + t[:, None, :]
+    z = torch.where(torch.abs(pc[..., 2:3]) < 1e-9, 1e-9, pc[..., 2:3])
+    proj = (pc @ K.T)[..., :2] / z
+    err = torch.linalg.norm(proj - uv[None], dim=-1)
+    inl = (err < inlier_thresh_px) & (pc[..., 2] > 0) & valid[None]
+    best = torch.argmax(torch.sum(inl, dim=1))
+
+    Tcw0 = geo.make_T(R[best], t[best])
     sqrt_info = torch.ones(uv.shape[0], dtype=torch.float32, device=uv.device)
     return ba.pose_optimization(Tcw0, K, pts_world, uv, sqrt_info, inl[best])

@@ -189,3 +189,80 @@ def test_klt_and_harris_card_vs_cpu(cuda):
     assert np.array_equal(k[0], c[0]) and np.array_equal(k[1], c[1]) and c[1].sum() >= 10
     assert np.array_equal(k[3], c[3]) and c[3].sum() >= 10
     assert np.abs(k[2] - c[2])[c[3]].max() <= cs.KLT_TRACK_TOL
+
+
+def _render(i=1):
+    from cube_slam_tpu_torch.utils import io, synth
+
+    return synth.SynthSequence(3, K=io.CabinetSequence.K, wh=(640, 480)).gray(i)
+
+
+def test_detect_lines_pyramid_card_vs_cpu(cuda):
+    """The LSD and EDLine pyramids on a 640x480 render, card vs CPU, as
+    chip_smoke.py phase 14C checks them on four frames: end to end, and the
+    line fit on the CPU's support (active pixels, angles, magnitudes), the
+    card finds at least chip_smoke.LINE_MATCH_SHARE of the CPU's segments
+    within chip_smoke.LINE_SET_TOL px (its segment sums and atan2 round
+    differently, which flips segments on a filter's threshold or at a full
+    top-k's cut); two card runs are bit-identical."""
+    from torch_parity_utils import cs
+
+    from cube_slam_tpu_torch.ops import lsd
+
+    img = _render()
+    found, total = 0, 0
+    for detector in ("edline", "lsd"):
+        c = lsd.detect_lines_pyramid(torch.as_tensor(img), detector=detector)
+        k = lsd.detect_lines_pyramid(torch.as_tensor(img, device=cuda), detector=detector)
+        k2 = lsd.detect_lines_pyramid(torch.as_tensor(img, device=cuda), detector=detector)
+        assert torch.equal(k["lines_base"], k2["lines_base"]) and torch.equal(k["valid"], k2["valid"])
+        for o in range(2):
+            sl = slice(o * 128, (o + 1) * 128)
+            a = c["lines_base"][sl].numpy()[c["valid"][sl].numpy()]
+            found += cs._line_sets_matched(a, k["lines_base"][sl].cpu().numpy()[k["valid"][sl].cpu().numpy()],
+                                           cs.LINE_SET_TOL)
+            args, kw = cs._fit_inputs(lsd, detector, c["octave_images"][o], o)
+            fits = [lsd._fit_lines_from_support(*[x.to(d) if torch.is_tensor(x) else x for x in args], **kw)
+                    for d in ("cpu", cuda)]
+            lines = [ln.cpu().numpy()[va.cpu().numpy()] for ln, va in fits]
+            found += cs._line_sets_matched(lines[0], lines[1], cs.LINE_SET_TOL)
+            total += len(a) + len(lines[0])
+    assert total > 400 and found >= cs.LINE_MATCH_SHARE * total, (found, total)
+
+
+def test_lbd_descriptors_card_vs_cpu(cuda):
+    """LBD on the same lines: fdesc within chip_smoke.FDESC_TOL, a bit
+    differs only at a near-tie (its two entries within it), the card repeats
+    bit for bit, and match_lines gives the same matches on the same words."""
+    from torch_parity_utils import cs
+
+    from cube_slam_tpu_torch.ops import lbd, lsd
+
+    img = torch.as_tensor(_render())
+    lines, valid = lsd.detect_lines(img, min_length=15.0, max_lines=128)
+    fc, bc = lbd.lbd_descriptors(img, lines, valid)
+    fk, bk = lbd.lbd_descriptors(img.to(cuda), lines.to(cuda), valid.to(cuda))
+    fk2, bk2 = lbd.lbd_descriptors(img.to(cuda), lines.to(cuda), valid.to(cuda))
+    assert torch.equal(fk, fk2) and torch.equal(bk, bk2)
+    fc, bc, fk, bk = fc.numpy(), bc.numpy(), fk.cpu().numpy(), bk.cpu().numpy()
+    assert np.abs(fk - fc).max() <= cs.FDESC_TOL
+    tie = np.abs(fc[:, lbd._PAIR_A] - fc[:, lbd._PAIR_B]) <= cs.FDESC_TOL
+    assert not ((cs._bits(bk) != cs._bits(bc)) & ~tie).any()
+    mc = lbd.match_lines(torch.as_tensor(bc), valid, torch.as_tensor(bc[::-1].copy()), valid.flip(0))
+    mk = lbd.match_lines(torch.as_tensor(bc, device=cuda), valid.to(cuda), torch.as_tensor(bc[::-1].copy(), device=cuda),
+                         valid.flip(0).to(cuda))
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(mc, mk))
+
+
+def test_chamfer_card_vs_cpu(cuda):
+    """chamfer_l2_3x3 on the card equals the CPU's bit for bit (adds of the
+    same constants, exact mins) on random, empty, full and Canny masks."""
+    from cube_slam_tpu_torch.ops import image
+
+    r = np.random.default_rng(0)
+    masks = [r.uniform(size=(37, 131)) < 0.05, np.zeros((24, 40), bool), np.ones((24, 40), bool),
+             image.canny(torch.as_tensor(_render())).numpy()]
+    for m in masks:
+        c = tdt.chamfer_l2_3x3(torch.as_tensor(m))
+        k = tdt.chamfer_l2_3x3(torch.as_tensor(m, device=cuda))
+        assert torch.equal(c, k.cpu())

@@ -131,3 +131,25 @@ def test_edt_batched_equals_per_map():
     for b in range(3):
         assert torch.equal(out[b], tdt.edt_l2(m[b]))
     assert torch.equal(tdt.vertical_dist(m)[1], tdt.vertical_dist(m[1:2])[0])
+
+
+@pytest.mark.parametrize("name", list(_masks()) + ["canny"])
+def test_chamfer_bit_identical_to_jax(name):
+    """OpenCV's 3x3 chamfer: every value is a float32 chain of adds of the
+    same constants and mins in the same row order, and the in-row cummin is
+    exact, so the port gives JAX's bits. Random, ragged, empty and full
+    masks, and the Canny edges of a render."""
+    if name == "canny":
+        m = tim.canny(torch.as_tensor(_frame())).numpy()
+    else:
+        m = _masks()[name]
+    ref = np.asarray(jdt.chamfer_l2_3x3(jnp.asarray(m)))
+    out = tdt.chamfer_l2_3x3(torch.as_tensor(m)).numpy()
+    assert out.dtype == np.float32 and np.array_equal(ref, out)
+    if name == "all_true":
+        assert not out.any()
+    if name == "all_false":
+        assert np.all(out == np.float32(1e9))
+    if name in ("240x320", "canny"):  # an approximate L2: within 9% of the exact EDT (OpenCV's bound)
+        exact = tdt.edt_l2(torch.as_tensor(m)).numpy()
+        assert np.all(np.abs(out - exact) <= 0.09 * exact + 1e-4)

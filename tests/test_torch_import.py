@@ -30,12 +30,16 @@ SLICE4 = ["slam.sim3", "slam.loop_closing", "utils.serialization"]
 SLICE5A = ["ops.stereo", "slam.system"]
 SLICE5B = ["slam.kitti"]
 SLICE6 = ["ops.klt", "graph.dynamic_ba", "slam.dynamic"]
+SLICE7 = ["ops.lbd", "ops.lsd", "ops.distance_transform", "slam.pnp", "config", "viz.drawing"] + [
+    "examples." + name for name in ("detect_lines", "run_cuboid_detection", "run_object_slam_demo", "run_mono_slam",
+                                    "run_synthetic_object_slam", "run_kitti_slam", "run_kitti_stereo_slam")]
 
 
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "cube_slam_tpu_torch.models.detector" in mods and len(mods) >= 26
-    assert not {"cube_slam_tpu_torch." + m for m in SLICE2 + SLICE3 + SLICE4 + SLICE5A + SLICE5B + SLICE6} - set(mods)
+    assert not {"cube_slam_tpu_torch." + m
+                for m in SLICE2 + SLICE3 + SLICE4 + SLICE5A + SLICE5B + SLICE6 + SLICE7} - set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -50,15 +54,18 @@ def test_every_module_imports_without_jax():
     assert out.stdout.strip() == "[]"
 
 
-@pytest.mark.parametrize("module", SLICE4 + SLICE5A + SLICE5B + SLICE6)
+@pytest.mark.parametrize("module", SLICE4 + SLICE5A + SLICE5B + SLICE6 + SLICE7)
 def test_loop_slice_module_imports_alone_without_jax(module):
     """Each module of the loop-closing slice, of the depth inputs, of the
-    KITTI trackers and of the dynamic objects, imported alone in a fresh
-    interpreter, pulls in neither JAX nor the JAX package."""
+    KITTI trackers, of the dynamic objects and of the line features,
+    presets, drawing and examples, imported alone in a fresh interpreter,
+    pulls in neither JAX nor the JAX package, nor PIL (the card's machine
+    has none: drawing and the examples import it when they draw or read)."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('cube_slam_tpu_torch.{module}')\n"
-        "print(sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'cube_slam_tpu', 'triton')))\n"
+        "print(sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'jaxlib', 'cube_slam_tpu', 'triton', 'PIL')))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,

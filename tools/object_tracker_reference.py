@@ -3,15 +3,16 @@
 chip_smoke.py's phase 8 gives the port, on the CPU, and print its outcome as
 one JSON line: the reference for the port's numbers there.
 
-    JAX_PLATFORMS=cpu python tools/object_tracker_reference.py [--frames 58] [--wh 640 480]
+    JAX_PLATFORMS=cpu python tools/object_tracker_reference.py [--frames 58] [--wh 640 480] [--prefix N]
 
 Setup as phase 8: `SynthSequence` (room box at [0, 3.2, 0.45]) with the
 TUM-cabinet intrinsics scaled to the width, the TUM-cabinet tracker preset
 (1500 features x 8 levels, loop closing off), ground_Twc0 = the first truth
 pose, the truth box as the 2D box, and the JAX package's LSD lines
 (min_length 15, max_lines 128) on each frame. The local-BA fold is forced
-synchronous, as in the port's tests. Times are host seconds on the CPU and
-say nothing of any device.
+synchronous, as in the port's tests. `--prefix N` tracks only the first N
+frames of the orbit, as phase 8 does (chip_smoke.OBJECT_FRAMES). Times are
+host seconds on the CPU and say nothing of any device.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=58)
     ap.add_argument("--wh", type=int, nargs=2, default=(640, 480))
+    ap.add_argument("--prefix", type=int, default=None, help="track only the first N frames of the orbit")
     args = ap.parse_args()
 
     import jax
@@ -57,7 +59,7 @@ def main():
 
     cfg = jsys.TrackerConfig(n_features=1500, n_levels=8, enable_loop_closing=False)
     trk = SyncFold(seq.K, wh, cfg, ground_Twc0=seq.truth_Twc(0))
-    N = seq.num_frames
+    N = args.prefix or seq.num_frames
     init, promoted, t0 = None, set(), time.perf_counter()
     for f in range(N):
         g = seq.gray(f)
