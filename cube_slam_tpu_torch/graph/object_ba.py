@@ -32,6 +32,7 @@ from torch.func import jacfwd, vmap
 
 from ..models import cuboid as cb
 from ..utils import geometry as geo
+from ..utils import profiler
 from .ba import (CHI2_MONO, HUBER_MONO, _cholesky_solve, _neg_hat, _segment_sum, huber_weight,
                  inv3_sym, project)
 
@@ -364,17 +365,21 @@ def local_ba_objects(
     state = (kf_tcw, pts, obj_pose, obj_scale)
     lam = torch.tensor(1e-4, dtype=torch.float32, device=pts.device)
     cost = total_cost(state)
+    profiler.count("lm_iters", num_iters)
     for _ in range(num_iters):
-        H_C, b_C, Hpp, bp, W = assemble_normal_blocks(
-            state, K, Kf, P, O, obs_edges, box_edges, po_edges,
-            po_binary=po_binary, obj_flags=obj_flags, meas_edges=meas_edges)
-        dC, dp = schur_reduce_solve(H_C, b_C, Hpp, bp, W, lam, C_mask, pt_mask, Kf, D)
-        new_state = retract_state(state, dC, dp, Kf, O)
-        new_cost = total_cost(new_state)
-        accept = (new_cost < cost) & torch.isfinite(new_cost)
-        state = tuple(torch.where(accept, a, b) for a, b in zip(new_state, state))
-        lam = torch.where(accept, lam * 0.5, lam * 4.0)
-        cost = torch.where(accept, new_cost, cost)
+        with profiler.span("obj.ba.iter"):
+            with profiler.span("obj.ba.assemble"):
+                H_C, b_C, Hpp, bp, W = assemble_normal_blocks(
+                    state, K, Kf, P, O, obs_edges, box_edges, po_edges,
+                    po_binary=po_binary, obj_flags=obj_flags, meas_edges=meas_edges)
+            with profiler.span("obj.ba.schur"):
+                dC, dp = schur_reduce_solve(H_C, b_C, Hpp, bp, W, lam, C_mask, pt_mask, Kf, D)
+            new_state = retract_state(state, dC, dp, Kf, O)
+            new_cost = total_cost(new_state)
+            accept = (new_cost < cost) & torch.isfinite(new_cost)
+            state = tuple(torch.where(accept, a, b) for a, b in zip(new_state, state))
+            lam = torch.where(accept, lam * 0.5, lam * 4.0)
+            cost = torch.where(accept, new_cost, cost)
 
     raw_r, raw_b, _ = residual_families(state, K, *obs_edges, *box_edges, *po_edges,
                                         po_binary=po_binary)
@@ -400,28 +405,33 @@ def local_ba_objects_two_stage(
     schedule (Optimizer.cc:1389-1444): reprojection edges with chi2 > 5.991
     and bbox edges with error norm > 80 px are dropped after the first
     stage, then the survivors are re-optimized. Returns the same tuple as
-    local_ba_objects (inlier masks reflect the pruned sets)."""
+    local_ba_objects (inlier masks reflect the pruned sets). Spans:
+    obj.ba.stage1, obj.ba.gate, obj.ba.stage2, each LM iteration an
+    obj.ba.iter inside its stage."""
     meas_kw = dict(meas_kf=meas_kf, meas_obj=meas_obj, meas_pose=meas_pose,
                    meas_scale=meas_scale, meas_si=meas_si, meas_valid=meas_valid)
     masks = (kf_fixed, pt_valid, obj_valid, obj_fix_scale)
-    kf1, pts1, op1, os1 = local_ba_objects(
-        kf_tcw, pts, obj_pose, obj_scale, K,
-        obs_kf, obs_pt, obs_uv, obs_si, obs_valid,
-        box_kf, box_obj, box_meas, box_si, box_valid,
-        po_obj, po_pt, po_si, po_valid, *masks,
-        num_iters=5, po_binary=po_binary, **meas_kw)[:4]
-    # chi2 gates on the stage-1 state; the bbox gate is the raw pixel error
-    raw_r, raw_b, _ = residual_families(
-        (kf1, pts1, op1, os1), K,
-        obs_kf.long(), obs_pt.long(), obs_uv, obs_si, obs_valid,
-        box_kf.long(), box_obj.long(), box_meas, box_si, box_valid,
-        po_obj.long(), po_pt.long(), po_si, po_valid, po_binary=po_binary)
-    obs_keep = obs_valid & (torch.sum(raw_r * raw_r, dim=-1) <= CHI2_MONO)
-    box_err = torch.linalg.vector_norm(raw_b / torch.clamp(box_si, min=1e-9)[:, None], dim=-1)
-    box_keep = box_valid & (box_err <= 80.0)
-    return local_ba_objects(
-        kf1, pts1, op1, os1, K,
-        obs_kf, obs_pt, obs_uv, obs_si, obs_keep,
-        box_kf, box_obj, box_meas, box_si, box_keep,
-        po_obj, po_pt, po_si, po_valid, *masks,
-        num_iters=10, po_binary=po_binary, **meas_kw)
+    with profiler.span("obj.ba.stage1"):
+        kf1, pts1, op1, os1 = local_ba_objects(
+            kf_tcw, pts, obj_pose, obj_scale, K,
+            obs_kf, obs_pt, obs_uv, obs_si, obs_valid,
+            box_kf, box_obj, box_meas, box_si, box_valid,
+            po_obj, po_pt, po_si, po_valid, *masks,
+            num_iters=5, po_binary=po_binary, **meas_kw)[:4]
+    with profiler.span("obj.ba.gate"):
+        # chi2 gates on the stage-1 state; the bbox gate is the raw pixel error
+        raw_r, raw_b, _ = residual_families(
+            (kf1, pts1, op1, os1), K,
+            obs_kf.long(), obs_pt.long(), obs_uv, obs_si, obs_valid,
+            box_kf.long(), box_obj.long(), box_meas, box_si, box_valid,
+            po_obj.long(), po_pt.long(), po_si, po_valid, po_binary=po_binary)
+        obs_keep = obs_valid & (torch.sum(raw_r * raw_r, dim=-1) <= CHI2_MONO)
+        box_err = torch.linalg.vector_norm(raw_b / torch.clamp(box_si, min=1e-9)[:, None], dim=-1)
+        box_keep = box_valid & (box_err <= 80.0)
+    with profiler.span("obj.ba.stage2"):
+        return local_ba_objects(
+            kf1, pts1, op1, os1, K,
+            obs_kf, obs_pt, obs_uv, obs_si, obs_keep,
+            box_kf, box_obj, box_meas, box_si, box_keep,
+            po_obj, po_pt, po_si, po_valid, *masks,
+            num_iters=10, po_binary=po_binary, **meas_kw)

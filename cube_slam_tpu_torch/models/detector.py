@@ -50,6 +50,7 @@ from ..ops import lines as line_ops
 from ..utils import geometry as geo
 from ..utils import io as io_utils
 from ..utils import np_geometry as np_geo
+from ..utils import profiler
 
 BIG = 1e8
 
@@ -423,25 +424,34 @@ class LatticeResult(NamedTuple):
     down_expand: torch.Tensor
 
 
-def _lattice(strong, weak, bh, K, invK, Twc_raw, cam_yaw, sample_roll_pitch: bool, edt):
+def _distance_maps(gray, bh, edt):
+    """The (BH, H, W) distance maps of every (bbox, height) region: the
+    frame's Canny NMS once, then hysteresis and the exact EDT confined to
+    each region's expanded rect. `edt` computes the maps
+    (ops/hopper_kernels.edt_l2 on the main path)."""
+    H, W = gray.shape
+    dev = gray.device
+    lt, rb = bh["expan_lt"], bh["expan_rb"]  # (BH, 2)
+    with profiler.span("detect.edges"):
+        strong, weak = im_ops.canny_nms(gray)
+        yy = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None]
+        xx = torch.arange(W, dtype=torch.float32, device=dev)[None, None, :]
+        rect = ((xx >= lt[:, 0, None, None]) & (xx <= rb[:, 0, None, None])
+                & (yy >= lt[:, 1, None, None]) & (yy <= rb[:, 1, None, None]))  # (BH, H, W)
+        edges = im_ops.canny_hysteresis(strong & rect, weak & rect)
+    with profiler.span("detect.edt"):
+        return edt(edges)
+
+
+def _lattice(dist_maps, bh, K, invK, Twc_raw, cam_yaw, sample_roll_pitch: bool):
     """Evaluate the full proposal lattice of every (bbox, height) region.
 
+    dist_maps: the regions' (BH, H, W) distance maps (_distance_maps).
     bh: dict of padded per-region inputs with leading dim BH (see unpack_bh).
-    strong/weak: (H, W) Canny NMS maps of the frame. `edt` computes the
-    (BH, H, W) distance maps (ops/hopper_kernels.edt_l2 on the main path).
     Returns LatticeResult with (BH, L) leading dims, L = NRP * NY * NT * 2."""
-    H, W = strong.shape
-    dev = strong.device
+    dev = dist_maps.device
     lt, rb = bh["expan_lt"], bh["expan_rb"]  # (BH, 2)
     BH = lt.shape[0]
-
-    # --- distance maps: hysteresis + exact EDT confined to the expanded rect
-    yy = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None]
-    xx = torch.arange(W, dtype=torch.float32, device=dev)[None, None, :]
-    rect = ((xx >= lt[:, 0, None, None]) & (xx <= rb[:, 0, None, None])
-            & (yy >= lt[:, 1, None, None]) & (yy <= rb[:, 1, None, None]))  # (BH, H, W)
-    edges = im_ops.canny_hysteresis(strong & rect, weak & rect)
-    dist_maps = edt(edges)  # (BH, H, W)
 
     # --- per (roll, pitch): sampled camera pose
     rolls, pitchs, rp_mask = bh["rolls"], bh["pitchs"], bh["rp_mask"]  # (BH, NRP)
@@ -566,9 +576,16 @@ def _detect_lattice(gray, bh_batch, K, invK, Twc_raw, cam_yaw, sample_roll_pitch
     bh = unpack_bh(*bh_batch)
     NB, NH = bh["left_x"].shape
     bh_flat = {k: v.reshape((NB * NH,) + v.shape[2:]) for k, v in bh.items()}
-    strong, weak = im_ops.canny_nms(gray)
-    res = _lattice(strong, weak, bh_flat, K, invK, Twc_raw, cam_yaw, sample_roll_pitch, edt)
+    dist_maps = _distance_maps(gray, bh_flat, edt)
+    with profiler.span("detect.proposals"):
+        res = _lattice(dist_maps, bh_flat, K, invK, Twc_raw, cam_yaw, sample_roll_pitch)
+    with profiler.span("detect.scoring"):
+        return _top_k(res, bh, NB, NH, top_k, nominal_skew_ratio, max_cut_skew)
 
+
+def _top_k(res, bh, NB, NH, top_k, nominal_skew_ratio, max_cut_skew):
+    """The k best proposals of each bbox by the skew-penalized score, their
+    fields packed (NB, top_k, 33)."""
     # flatten the height dim into the proposal dim
     res = LatticeResult(*[x.reshape((NB, -1) + x.shape[2:]) for x in res])
     L = res.keep.shape[1] // NH
@@ -875,9 +892,11 @@ class CuboidDetector:
         obj_bboxes: (N, >=4) rows [x y w h ...]; lines_raw: (M, 4).
         Returns list (per bbox) of lists of CuboidProposal, best first.
         """
-        kernel_args, aux = self.prepare_batch(rgb_or_gray, transToWorld, obj_bboxes, lines_raw)
+        with profiler.span("detect.prepare"):
+            kernel_args, aux = self.prepare_batch(rgb_or_gray, transToWorld, obj_bboxes, lines_raw)
         _, _, _, _, packed = detect_lattice_batch(**kernel_args)
-        return self.unpack_proposals(packed, aux)
+        with profiler.span("detect.unpack"):
+            return self.unpack_proposals(packed, aux)
 
     def unpack_proposals(self, packed, aux):
         """Packed top-k fields (NB, top_k, 33) -> per-bbox CuboidProposal lists."""

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..graph.ba import _segment_sum
+from ..utils import profiler
 from . import image as im_ops
 
 _ANGLE_TOL = math.radians(22.5)
@@ -110,8 +111,20 @@ def _fit_lines_from_support(active, angle, mag, min_pixels, min_length, min_dens
 
     init_labels = torch.where(active, torch.arange(N, dtype=torch.int32, device=dev).reshape(H, W),
                               torch.tensor(N + 1, dtype=torch.int32, device=dev))
-    labels = _propagate_labels(init_labels, angle, active, num_prop_iters)
+    with profiler.span("lsd.labels"):
+        labels = _propagate_labels(init_labels, angle, active, num_prop_iters)
+    with profiler.span("lsd.fit"):
+        return _fit_components(active, labels, mag, min_pixels, min_length, min_density, max_width_ratio,
+                               max_lines, max_abs_width)
 
+
+def _fit_components(active, labels, mag, min_pixels, min_length, min_density, max_width_ratio, max_lines,
+                    max_abs_width):
+    """Labelled support -> (lines (max_lines, 4), valid): the weighted-PCA
+    fit of every component by segment sums, the filters, the top-k."""
+    H, W = active.shape
+    N = H * W
+    dev = active.device
     act = active.reshape(-1)
     flat_lab = torch.where(act, labels.reshape(-1), N).long()  # N = trash bin
     ar = torch.arange(N, dtype=torch.float32, device=dev)
@@ -208,13 +221,17 @@ def detect_lines(
     Support = pixels with gradient magnitude above LSD's rho
     (~5.22 for q=2: 2 / sin(tol) * q/255-quantization). Lines sorted by
     length descending, [x1 y1 x2 y2] with x1 <= x2
-    (align_left_right_edges convention).
+    (align_left_right_edges convention). Spans: lsd.detect, with
+    lsd.gradients, lsd.labels (the label propagation) and lsd.fit (the
+    segment-sum fit) inside.
     """
-    gx, gy, mag, angle = _lsd_gradients(img)
-    active = mag > mag_threshold
-    return _fit_lines_from_support(
-        active, angle, mag, min_pixels, min_length, min_density,
-        max_width_ratio, max_lines, num_prop_iters)
+    with profiler.span("lsd.detect"):
+        with profiler.span("lsd.gradients"):
+            gx, gy, mag, angle = _lsd_gradients(img)
+            active = mag > mag_threshold
+        return _fit_lines_from_support(
+            active, angle, mag, min_pixels, min_length, min_density,
+            max_width_ratio, max_lines, num_prop_iters)
 
 
 def detect_edlines(

@@ -831,11 +831,12 @@ class DynamicRgbdTracker:
     def track(self, gray, depth=None, dyn_dets=None):
         """One frame, its depth image and its DynamicDetections (with
         instance masks); returns Tcw or None."""
-        self._pending_dyn = dyn_dets or []
-        # chains advance prev->current BEFORE the keyframe snapshot
-        with profiler.span("dyn.advance"):
-            self.dynamic.advance(gray, self._pending_dyn)
-        return self._impl.track(gray, depth)
+        with profiler.frame(self.frame_id + 1):
+            self._pending_dyn = dyn_dets or []
+            # chains advance prev->current BEFORE the keyframe snapshot
+            with profiler.span("dyn.advance"):
+                self.dynamic.advance(gray, self._pending_dyn)
+            return self._impl.track(gray, depth)
 
     def _static_anchor_edges(self, impl, window):
         return static_anchor_edges(impl.map, window, self.static_anchor_cap)

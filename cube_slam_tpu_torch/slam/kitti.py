@@ -137,11 +137,12 @@ class KittiMonoTracker(ObjectSlamTracker):
     # ------------------------------------------------------------------
     def track(self, gray):
         """Process one frame; returns Tcw (4, 4) or None."""
-        was_uninit = self.state == "NOT_INITIALIZED"
-        out = MonocularTracker.track(self, gray)
-        if was_uninit and self.state == "OK":
-            self._offline_depth_scale_init()
-            self._bump_map()
+        with profiler.frame(self.frame_id + 1):
+            was_uninit = self.state == "NOT_INITIALIZED"
+            out = MonocularTracker.track(self, gray)
+            if was_uninit and self.state == "OK":
+                self._offline_depth_scale_init()
+                self._bump_map()
         return out
 
     def reset(self):
@@ -453,6 +454,8 @@ class KittiStereoTracker(StereoTracker):
 
     _rows_for = KittiMonoTracker._rows_for
     _object_ba = ObjectSlamTracker._object_ba
+    _object_ba_problem = ObjectSlamTracker._object_ba_problem
+    _object_ba_apply = ObjectSlamTracker._object_ba_apply
     # object landmarks are world-frame state — they must ride loop
     # corrections exactly like in ObjectSlamTracker (same store/meas
     # layouts), or cuboids go stale after a closed loop

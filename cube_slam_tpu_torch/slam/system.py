@@ -36,7 +36,6 @@ MonocularTracker.track); the subclasses inherit it, as in the JAX package.
 from __future__ import annotations
 
 import logging
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -146,8 +145,6 @@ class MonocularTracker:
         # (motion-model re-anchor after a BA fold)
         self._last_rel = None
         self._last_track_stats = None
-        # optional structured per-frame metrics (utils/metrics.MetricsRecorder)
-        self.metrics = None
 
     # ------------------------------------------------------------------
     def _t(self, x, dtype=None):
@@ -217,27 +214,33 @@ class MonocularTracker:
         System.cc:104-117). The returned pose is then the PREVIOUS frame's
         (None while the pipeline fills); `trajectory` still records every
         frame once under its own id, and `flush()` resolves the frame left
-        in flight."""
-        t0 = time.perf_counter()
-        # fold the previous keyframe's local BA as soon as the device has
-        # finished it (bounded staleness; non-blocking check)
-        self._apply_pending_map(only_if_ready=True)
-        if self.cfg.pipeline and self.state == "OK":
-            out = self._track_pipelined(gray)
-        else:
-            if self._pending is not None:
-                self._resolve_pending()
-            out = self._track_one(gray)
-        if self.metrics is not None:
-            self.metrics.add(
-                frame_id=self.frame_id, state=self.state,
-                tracked=out is not None,
-                inliers=int(self.tracked_inliers),
-                n_kf=int(self.map.kf_valid.sum()),
-                n_mp=int(self.map.mp_valid.sum()),
-                frame_ms=(time.perf_counter() - t0) * 1e3,
-            )
+        in flight.
+
+        While the profiler is enabled, the frame is one root span `frame`
+        carrying the frame id, with the state reached, whether a pose came
+        back, the inliers, and the keyframes and map points after it as its
+        counters."""
+        with profiler.frame(self.frame_id + 1):
+            # fold the previous keyframe's local BA as soon as the device has
+            # finished it (bounded staleness; non-blocking check)
+            self._apply_pending_map(only_if_ready=True)
+            if self.cfg.pipeline and self.state == "OK":
+                out = self._track_pipelined(gray)
+            else:
+                if self._pending is not None:
+                    self._resolve_pending()
+                out = self._track_one(gray)
+            if profiler.enabled():
+                self._count_frame(out)
         return out
+
+    def _count_frame(self, out):
+        """The frame's outcome as counters of its root span."""
+        profiler.count("state." + self.state)
+        profiler.count("tracked", int(out is not None))
+        profiler.count("inliers", int(self.tracked_inliers))
+        profiler.count("keyframes", int(self.map.kf_valid.sum()))
+        profiler.count("map_points", int(self.map.mp_valid.sum()))
 
     def flush(self):
         """Resolve the frame in flight (pipelined mode), then fold any
@@ -747,9 +750,12 @@ class MonocularTracker:
         return k
 
     def _create_keyframe(self, feats, fid=None):
-        cfg = self.cfg
         fid = self.frame_id if fid is None else fid
-        t_kf0 = time.perf_counter()
+        with profiler.span("kf.total"):
+            self._create_keyframe_steps(feats, fid)
+
+    def _create_keyframe_steps(self, feats, fid):
+        cfg = self.cfg
         # fold the PREVIOUS keyframe's in-flight local BA in first: slot
         # recycling below would orphan its results
         with profiler.span("kf.ba_fold"):
@@ -820,8 +826,6 @@ class MonocularTracker:
                 self._try_close_loop(k, counts)
         # fold the local BA as soon as the device reports it done
         self._apply_pending_map(only_if_ready=True)
-        if profiler._enabled:
-            profiler._records["kf.total"].append(time.perf_counter() - t_kf0)
 
     def _try_close_loop(self, k, covis_counts):
         """DetectLoop -> verify Sim3 -> CorrectLoop (essential graph with
@@ -1194,6 +1198,11 @@ class MonocularTracker:
             if d[i_ref] > 1e-6:
                 gauge = (i_fix, i_ref, float(d[i_ref]))
         E = len(kf_idx)
+        if profiler.enabled():
+            profiler.count("local_keyframes", nk - int(kf_fixed.sum()))
+            profiler.count("fixed_keyframes", int(kf_fixed.sum()))
+            profiler.count("points", len(mp_set))
+            profiler.count("edges", E)
         out_tcw, out_pts, _cost, inl = ba.local_ba_points(
             self._t(kf_tcw), self._t(m.mp_pos[mp_set]), self._K_dev,
             self._t(obs_kf), self._t(obs_pt), self._t(obs_uv), self._t(obs_si),
@@ -1489,6 +1498,13 @@ class StereoTracker(RgbdTracker):
         self.baseline = float(baseline)
 
     def track(self, gray_left, gray_right=None):
+        with profiler.frame(self.frame_id + 1):
+            # MonocularTracker.track, not RgbdTracker.track: the depth is set here
+            self._pending_depth = self._stereo_depth(gray_left, gray_right)
+            return MonocularTracker.track(self, gray_left)
+
+    def _stereo_depth(self, gray_left, gray_right):
+        """The left image's depth at its keypoints, from stereo matching."""
         from ..ops import stereo as stereo_ops
 
         feats_l = self._extract(gray_left)
@@ -1504,9 +1520,7 @@ class StereoTracker(RgbdTracker):
         xi = np.clip(feats_l.xy[:, 0].astype(int), 0, W - 1)
         yi = np.clip(feats_l.xy[:, 1].astype(int), 0, H - 1)
         depth_img[yi, xi] = depth.cpu().numpy()
-        # MonocularTracker.track, not RgbdTracker.track: the depth is set here
-        self._pending_depth = depth_img
-        return MonocularTracker.track(self, gray_left)
+        return depth_img
 
 
 class ObjectSlamTracker(MonocularTracker):
@@ -1560,13 +1574,14 @@ class ObjectSlamTracker(MonocularTracker):
     def track(self, gray, bboxes_2d=None, lines=None):
         """Process one frame with its 2D object boxes (B, >=4) [x y w h] and
         line segments (M, 4); returns Tcw (4, 4) or None."""
-        self._pending_obs = (gray, bboxes_2d, lines)
-        was_uninit = self.state == "NOT_INITIALIZED"
-        out = super().track(gray)
-        if was_uninit and self.state == "OK":
-            self._anchor_world_to_ground()
-            self._object_depth_scale_init()
-            self._bump_map()
+        with profiler.frame(self.frame_id + 1):
+            self._pending_obs = (gray, bboxes_2d, lines)
+            was_uninit = self.state == "NOT_INITIALIZED"
+            out = super().track(gray)
+            if was_uninit and self.state == "OK":
+                self._anchor_world_to_ground()
+                self._object_depth_scale_init()
+                self._bump_map()
         return out
 
     def _anchor_world_to_ground(self):
@@ -1816,11 +1831,30 @@ class ObjectSlamTracker(MonocularTracker):
         observation of the window's points by the window's keyframes and
         every valid edge of the object families (the JAX package pads all
         of them to pow2 capacities, inertly); the object store keeps its
-        slots."""
+        slots. Spans: obj.ba.build (the host's problem and its uploads),
+        the solve's stages (graph/object_ba.py), obj.ba.apply (the read-back
+        and the write into the map); the problem's sizes count on the
+        enclosing span."""
+        with profiler.span("obj.ba.build"):
+            problem = self._object_ba_problem(k)
+        if problem is None:
+            return
+        args, kw, sizes, local, kf_fixed, mp_set, gauge = problem
+        for name, n in sizes.items():
+            profiler.count(name, n)
+        out = object_ba.local_ba_objects_two_stage(*args, **kw)
+        with profiler.span("obj.ba.apply"):
+            self._object_ba_apply(out, local, kf_fixed, mp_set, gauge)
+
+    def _object_ba_problem(self, k):
+        """The object BA's problem over k's window on the device: (args, kw
+        of local_ba_objects_two_stage, sizes, window keyframes, their fixed
+        flags, the window's points, the scale gauge), or None where no
+        object or no point lives."""
         m = self.map
         st = self.objects.store
         if not st.valid.any():
-            return
+            return None
         self.objects.filter_and_recenter(m)
         counts = m.covisibility_counts(k)
         order = np.argsort(-counts)
@@ -1829,7 +1863,7 @@ class ObjectSlamTracker(MonocularTracker):
         mp_set = np.unique(np.concatenate([m.kf_kp_mp[kf][m.kf_kp_mp[kf] >= 0] for kf in local]))
         mp_set = mp_set[m.mp_valid[mp_set]]
         if len(mp_set) == 0:
-            return
+            return None
 
         kf_idx, kp_idx, mp_idx = m.observations_of(mp_set)
         keep = np.isin(kf_idx, local)
@@ -1879,16 +1913,27 @@ class ObjectSlamTracker(MonocularTracker):
 
         t = self._t
         E = len(obs_kf)
-        out = object_ba.local_ba_objects_two_stage(
+        args = (
             t(kf_tcw), t(m.mp_pos[mp_set]), t(st.pose), t(st.scale), self._K_dev,
             t(obs_kf), t(obs_pt), t(obs_uv), t(obs_si), torch.ones(E, dtype=torch.bool, device=self.device),
             t(box_kf[box]), t(box_obj[box]), t(box_meas[box]), t(box_si[box]), t(box_valid[box]),
             t(po_obj[po]), t(po_loc[po]), t(po_si[po]), t(po_valid[po]),
             t(kf_fixed), torch.ones(len(mp_set), dtype=torch.bool, device=self.device),
-            t(st.valid), t(st.fix_scale),
-            meas_kf=t(meas_kf[meas]), meas_obj=t(meas_obj[meas]), meas_pose=t(meas_pose[meas]),
-            meas_scale=t(meas_scale[meas]), meas_si=t(meas_si[meas]), meas_valid=t(meas_valid[meas]),
-        )
+            t(st.valid), t(st.fix_scale))
+        kw = dict(meas_kf=t(meas_kf[meas]), meas_obj=t(meas_obj[meas]), meas_pose=t(meas_pose[meas]),
+                  meas_scale=t(meas_scale[meas]), meas_si=t(meas_si[meas]), meas_valid=t(meas_valid[meas]))
+        O = len(st.valid)
+        sizes = {"keyframes": nk, "points": len(mp_set), "objects": O, "edges.reprojection": E,
+                 "edges.box": len(box), "edges.point_object": len(po), "edges.measurement": len(meas),
+                 "schur_dim": 6 * nk + 9 * O}
+        return args, kw, sizes, local, kf_fixed, mp_set, gauge
+
+    def _object_ba_apply(self, out, local, kf_fixed, mp_set, gauge):
+        """Read the solve back and write it into the map and the object
+        store, the scale gauge renormalized about the fixed camera."""
+        m = self.map
+        st = self.objects.store
+        nk = len(local)
         kf_out, pts_out, op_out, os_out = (x.cpu().numpy() for x in out[:4])
         if gauge is not None:
             i_fix, i_ref, d_before = gauge

@@ -290,3 +290,35 @@ def test_sharded_one_nccl_rank_matches_unsharded(cuda):
     gaps, ok = cs.sharded_gaps(out, ref)
     assert ok, gaps
     assert launches == 1
+
+
+@pytest.mark.parametrize("op,syncs", [
+    ("cpu", 1), ("item", 1), ("nonzero", 1), ("bool", 1), ("elementwise", 0), ("upload", 1), ("query", 0)])
+def test_sync_counter_counts_one_per_read_back(cuda, op, syncs):
+    """The profiler's `sync` counter: one known synchronizing operation
+    inside a span counts exactly 1 on that span, an asynchronous one 0, and
+    the sync debug mode is restored when the profiler is disabled. An
+    upload from pageable host memory waits on the stream: it counts."""
+    import numpy as np
+
+    from cube_slam_tpu_torch.utils import profiler
+
+    x = torch.arange(8, dtype=torch.float32, device=cuda)
+    run = {"cpu": lambda: x.cpu(), "item": lambda: x.sum().item(), "nonzero": lambda: (x > 3).nonzero(),
+           "bool": lambda: bool(x[0] > 0), "elementwise": lambda: x * 2,
+           "upload": lambda: torch.as_tensor(np.ones(4, np.float32), device=cuda),
+           "query": lambda: torch.cuda.Event().query()}[op]
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    profiler.drain()
+    profiler.enable()
+    try:
+        with profiler.span("outer"):
+            with profiler.span("op"):
+                run()
+    finally:
+        profiler.disable()
+    spans = {s.name: s for s in profiler.drain()}
+    assert (spans["op"].counts or {}).get("sync", 0) == syncs
+    assert spans["outer"].counts is None
+    assert torch.cuda.get_sync_debug_mode() == mode

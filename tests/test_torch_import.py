@@ -23,7 +23,7 @@ def _modules():
     return sorted(m.name for m in pkgutil.walk_packages(cube_slam_tpu_torch.__path__, "cube_slam_tpu_torch."))
 
 
-SLICE2 = ["ops.orb", "ops.matching", "utils.profiler", "utils.metrics", "slam.state", "graph.ba",
+SLICE2 = ["ops.orb", "ops.matching", "utils.profiler", "slam.state", "graph.ba",
           "slam.initializer", "slam.pnp", "slam.tracking", "slam.loop_closing", "slam.system"]
 SLICE3 = ["ops.ransac", "slam.ground", "slam.kitti", "slam.objects", "graph.object_ba"]
 SLICE4 = ["slam.sim3", "slam.loop_closing", "utils.serialization"]

@@ -12,7 +12,7 @@ from torch_parity_utils import GATE_A_CONFIG, GATE_A_K, gate_a_sequence, sync_fo
 from cube_slam_tpu.slam.tracking import evaluate_ate_scaled as jax_ate
 from cube_slam_tpu_torch.slam import system as tsys
 from cube_slam_tpu_torch.slam.tracking import evaluate_ate_scaled
-from cube_slam_tpu_torch.utils import metrics, profiler
+from cube_slam_tpu_torch.utils import profiler
 
 
 def _outcome(trk, poses):
@@ -32,7 +32,6 @@ def runs():
     for f in frames:
         J.track(f)
     P = tsys.MonocularTracker(GATE_A_K, (320, 240), tsys.TrackerConfig(**GATE_A_CONFIG), device="cpu")
-    P.metrics = metrics.MetricsRecorder()
     profiler.reset()
     profiler.enable()
     try:
@@ -41,8 +40,9 @@ def runs():
     finally:
         profiler.disable()
     spans = profiler.aggregated()
+    records = profiler.records()
     profiler.reset()
-    return dict(jax=_outcome(J, poses), port=_outcome(P, poses), P=P, spans=spans, poses=poses)
+    return dict(jax=_outcome(J, poses), port=_outcome(P, poses), P=P, spans=spans, records=records, poses=poses)
 
 
 def test_gate_a_port_agrees_with_jax(runs):
@@ -62,15 +62,39 @@ def test_gate_a_port_agrees_with_jax(runs):
 
 
 def test_gate_a_metrics_and_profiler(runs):
-    """The per-frame metrics recorder and the profiler spans of the run."""
-    rec = runs["P"].metrics
-    assert len(rec.records) == 14
-    s = rec.summary()
-    assert s["frames"] == 14 and s["tracked_frac"] == 8 / 14 and s["final_keyframes"] == 5
+    """The frames' outcomes, read from the counters of their root spans, and
+    the profiler spans of the run."""
+    frames = [r for r in runs["records"] if r.name == "frame"]
+    assert len(frames) == 14 and [r.frame for r in frames] == list(range(14))
+    assert sum(r.counts["tracked"] for r in frames) == 8
+    assert frames[-1].counts["keyframes"] == 5 and frames[-1].counts["state.OK"] == 1
     spans = runs["spans"]
     for name in ("track.dispatch", "track.result_read", "kf.total", "kf.ba_dispatch", "ba.fold"):
         assert name in spans, sorted(spans)
     assert spans["track.result_read"][4] == 7  # the 7 frames after initialization
+
+
+def test_gate_a_frame_spans(runs):
+    """Every span of the run lies under one of the 14 `frame` roots, inside
+    it and carrying its frame id; kf.total and ba.fold are among them."""
+    recs = runs["records"]
+    by_id = {r.id: r for r in recs}
+
+    def root(r):
+        while r.parent is not None:
+            r = by_id[r.parent]
+        return r
+
+    roots = [r for r in recs if r.parent is None]
+    assert [r.name for r in roots] == ["frame"] * 14
+    for r in recs:
+        top = root(r)
+        assert r.frame == top.frame and top.start <= r.start <= r.end <= top.end
+    names = {r.name for r in recs}
+    assert {"kf.total", "kf.ba_fold", "ba.fold", "track.dispatch", "step.orb"} <= names, sorted(names)
+    for r in recs:
+        if r.name == "kf.ba_fold":
+            assert by_id[r.parent].name == "kf.total"
 
 
 def test_ate_helper_matches_jax(runs):
@@ -113,24 +137,22 @@ def test_tracker_config_matches_jax():
 
 
 def test_profiler_api_matches_jax():
-    """tictoc / span / aggregated / print_aggregated behave as the JAX
-    package's profiler (tests/test_aux.py::test_profiler_aggregation)."""
-    import torch
-
+    """span / aggregated / print_aggregated behave as the JAX package's
+    profiler (tests/test_aux.py::test_profiler_aggregation)."""
     profiler.reset()
     profiler.enable()
     try:
         for _ in range(3):
-            profiler.tictoc("a")
-            profiler.tictoc("a", sync_value=torch.zeros(2))
-        with profiler.span("b", sync_value=[torch.ones(1)]):
-            pass
-        with profiler.trace("c"):
+            with profiler.span("a"):
+                pass
+        with profiler.span("b"):
             pass
         rows = profiler.aggregated()
     finally:
         profiler.disable()
         profiler.reset()
-    assert rows["a"][4] == 3 and rows["b"][4] == 1 and "c" not in rows
-    profiler.tictoc("off")  # disabled: no record, no open span
+    assert rows["a"][4] == 3 and rows["b"][4] == 1
+    assert all(r[1] <= r[2] <= r[3] and abs(r[0] - r[2] * r[4]) < 1e-9 for r in rows.values())
+    with profiler.span("off"):  # disabled: no record, no open span
+        pass
     assert profiler.aggregated() == {}
