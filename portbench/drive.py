@@ -3,9 +3,11 @@ handed one frame at a time, as a user's loop over a camera does.
 
 A configuration's `runs` entry names the entry that a traffic mix drives
 (`portbench/entries/<entry>.py`, found by that name): the entry builds the
-tracker and gives `track()` its arguments per frame. Everything here imports
-the port lazily, inside the functions, so the benchmark's modules import
-without it.
+tracker and gives `track()` its arguments per frame. A tracker is held to
+the configuration's `orb` where it states one; where it states none, as
+CubeSLAM's cube-only mode, which predicts each pose at constant velocity,
+the tracker must run no ORB. Everything here imports the port lazily,
+inside the functions, so the benchmark's modules import without it.
 """
 
 from __future__ import annotations
@@ -30,11 +32,18 @@ def entry(name):
 
 
 def build_tracker(port, cfg, run, ep, device):
-    """A fresh tracker of the run's entry for episode `ep` on `device`,
-    holding the configuration's ORB settings (checked against what the
-    tracker runs)."""
+    """A fresh tracker of the run's entry for episode `ep` on `device`.
+    Where the configuration states `orb`, the tracker's `orb_cfg` must hold
+    every stated key; where it states none, the tracker must have no
+    `orb_cfg` (or None). Either failing raises RuntimeError."""
     trk = entry(run["entry"]).build(port, cfg, ep, device)
-    orb, want = trk.orb_cfg, cfg["orb"]
+    orb, want = getattr(trk, "orb_cfg", None), cfg.get("orb")
+    if want is None:
+        if orb is not None:
+            raise RuntimeError("the tracker runs ORB; the configuration states none")
+        return trk
+    if orb is None:
+        raise RuntimeError(f"the tracker runs no ORB; the configuration states {want}")
     got = dict(n_features=orb.n_features, n_levels=orb.n_levels, scale_factor=orb.scale_factor,
                ini_th_fast=orb.ini_th, min_th_fast=orb.min_th)
     if any(abs(float(got[k]) - float(want[k])) > 1e-9 for k in want):

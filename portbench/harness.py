@@ -16,7 +16,12 @@ episodes take 37-56 s).
 The checks (checks/<name>.py) may record calls of the port made in the
 window: a check's `install(port, calls)` wraps a function of the port when
 the window opens and is taken off when it closes; checks that name the same
-`PROBE` share one recorder.
+`PROBE` share one recorder. The port's span records of the window are
+drained from its profiler once the window has closed and handed to the
+metrics on the Run (`Run.spans`), with the profiled stretch (`Run.trace`).
+Where a cell's end-to-end metrics read the device trace, its `--trace 0`
+run holds the whole window under a device-only trace (trace.WindowTrace)
+and hands the device's busy seconds to them (`Run.device_busy_s`).
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ class Cell:
     end_to_end: list
     per_layer: list
     units: dict                # metric name -> unit, from BENCHMARK.json
+    sources: dict = field(default_factory=dict)   # metric name -> source, from BENCHMARK.json
 
 
 def _json(path):
@@ -83,7 +89,8 @@ def load_cell(name, bench=None, base=BENCH_DIR):
                 run=config["runs"][w["traffic"]],
                 end_to_end=[m["name"] for m in bench["end_to_end"] if reported(m)],
                 per_layer=[m["name"] for m in bench["per_layer"] if reported(m)],
-                units={m["name"]: m["unit"] for m in bench["end_to_end"] + bench["per_layer"]})
+                units={m["name"]: m["unit"] for m in bench["end_to_end"] + bench["per_layer"]},
+                sources={m["name"]: m.get("source") for m in bench["end_to_end"] + bench["per_layer"]})
 
 
 def fix_host_threads():
@@ -95,8 +102,10 @@ def fix_host_threads():
 
 def reader(kind, name):
     """The module of a metric (kind "metrics") or a compared number (kind
-    "checks"), found by its name."""
-    return importlib.import_module(f"portbench.{kind}.{name}")
+    "checks"), found by its name. A quantity split between cells that
+    report different end-to-end metrics, `<name>.<part>`, is read by
+    `<name>`'s module."""
+    return importlib.import_module(f"portbench.{kind}.{name.split('.')[0]}")
 
 
 @dataclass
@@ -136,6 +145,8 @@ class Run:
     window_s: float = 0.0
     setup: dict = field(default_factory=dict)
     trace: object = None       # trace.Stretch of a --trace 1 run
+    device_busy_s: float = None  # seconds of the window in which the device ran an operation (trace.WindowTrace)
+    spans: list = None         # the port's span records of the window (profiler.drain()), in the order they opened
     calls: dict = field(default_factory=dict)   # a check's PROBE -> the calls its install() recorded
     cache: dict = field(default_factory=dict)   # what the checks work out once and share
 
@@ -228,7 +239,8 @@ def warm_up(driver, pool, profiler, until):
     """Run a fresh tracker over the first frames until the port's spans
     show each of `until` ({span name: calls}) reached, or the episode ends:
     every CUDA module, cuBLAS / cuSOLVER handle and the allocator's pools
-    the window will use are then made."""
+    the window will use are then made. The spans it recorded are drained
+    and dropped."""
     profiler.reset()
     profiler.enable()
 
@@ -240,7 +252,7 @@ def warm_up(driver, pool, profiler, until):
         driver.episode(-1, pool, stop=reached)
     finally:
         profiler.disable()
-        profiler.reset()
+        profiler.drain()
 
 
 def span_deltas(profiler, prev):
@@ -330,9 +342,13 @@ def run_cell(cell, seed, seconds, trace, device, t_start, lines_fn=None, tracker
     them (tools/sweep.py reads one draw per seed)."""
     import torch
 
-    from . import drive
+    from . import drive, spans
     from . import trace as trace_mod
 
+    cuda = getattr(device, "type", str(device)) == "cuda"
+    window_trace = None
+    if not trace and cuda and any(cell.sources.get(n) == "device_trace" for n in cell.end_to_end):
+        window_trace = trace_mod.WindowTrace(torch, device)
     setup = {}
     t = time.perf_counter()
     port = drive.port_modules()
@@ -345,7 +361,7 @@ def run_cell(cell, seed, seconds, trace, device, t_start, lines_fn=None, tracker
     eps = [traffic_episode.make_episode(cell.config, d, workers=render_workers) for d in draws]
     setup["render_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    for lib in cell.run["native"] if getattr(device, "type", str(device)) == "cuda" else ():
+    for lib in cell.run["native"] if cuda else ():
         port["build"].load(lib)
     setup["build_s"] = time.perf_counter() - t
     setup["compiled_s"] = sum(port["build"].build_seconds.values())
@@ -353,12 +369,13 @@ def run_cell(cell, seed, seconds, trace, device, t_start, lines_fn=None, tracker
     driver = Driver(cell, eps, port, device, lines_fn=lines_fn, tracker_hook=tracker_hook)
     if warm:
         warm_up(driver, order[0], port["profiler"], cell.traffic["warmup_until"])
+    if window_trace is not None:
+        window_trace.warm()
     setup["warmup_s"] = time.perf_counter() - t
     setup["total_s"] = time.perf_counter() - t_start
     log("[setup] " + ", ".join(f"{k} {v:.3f}" for k, v in setup.items())
         + " (import counts from the process's start; compiled_s is the native builds' compile time, "
           "0 where the checkout had them)")
-    cuda = getattr(device, "type", str(device)) == "cuda"
     if cuda:
         log(f"[device before the window] {nvidia_smi()}")
 
@@ -373,13 +390,18 @@ def run_cell(cell, seed, seconds, trace, device, t_start, lines_fn=None, tracker
         if hasattr(m, "install") and m.PROBE not in calls:
             calls[m.PROBE] = []
             probes.append(lambda m=m, c=calls[m.PROBE]: m.install(port, c))
+    if window_trace is not None:
+        window_trace.start()
     frames, episodes, window = measure(driver, order, seconds, ctl, port["profiler"], probes)
     run = Run(cell=cell, seed=seed, eps=eps, frames=frames, episodes=episodes, window_s=window, setup=setup,
-              calls=calls)
+              calls=calls, spans=port["profiler"].drain())
+    if window_trace is not None:
+        run.device_busy_s, ops, read_s = window_trace.stop_and_read()
+        log(f"[window trace] {ops} device operations, busy {run.device_busy_s:.6f} s of the window's "
+            f"{window:.3f} s, read in {read_s:.1f} s")
     if ctl is not None:
         run.trace = ctl.read()
         run.edt_pixels = ctl.edt_pixels
-        port["profiler"].reset()
     device_info = {"platform": "gpu" if cuda else "cpu",
                    "kind": torch.cuda.get_device_name(device) if cuda else "cpu",
                    "count": cell.chips,
@@ -415,7 +437,8 @@ def run_cell(cell, seed, seconds, trace, device, t_start, lines_fn=None, tracker
     if trace and run.trace is not None:
         result["device"]["busy_s"] = trace_mod.busy_s(run.trace)
         result["device"]["window_s"] = run.trace.wall_s
-        result["breakdown"] = trace_mod.breakdown(run.trace)
+        joined = spans.join(run)
+        result["breakdown"] = trace_mod.breakdown(run.trace, None if joined is None else joined.gaps)
         log(f"[trace] stretch of {run.trace.frames} frames from frame {cell.spec['trace']['from_frame']}: "
             f"{run.trace.wall_s:.3f} s wall, {len(run.trace.device)} device events, EDT calls "
             f"{len(run.edt_pixels)}")

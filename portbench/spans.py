@@ -4,12 +4,14 @@ While a traced run's window is open, the port's profiler
 (cube_slam_tpu_torch/utils/profiler.py) records every span with its start,
 end, parent, frame id and counters on time.perf_counter_ns(). Beside each
 device operation of the stretch, torch.profiler records the CUDA runtime
-call that launched it, under the same correlation id. `join(run)` reads
-both once, after the window:
+call that launched it, under the same correlation id. The harness hands
+both over after the window, the spans drained from the port's profiler as
+`Run.spans`, the launch records as `Run.trace.launches` (trace.py), and
+`join(run)` reads them once:
 
-- The trace's clock is put onto perf_counter_ns by the marker's launch
-  record (the stretch's first launch, made just after the harness read its
-  clock; its kernel's name and whether its correlation id is the first are
+- The launch records are on perf_counter_ns by the marker's launch record
+  (the stretch's first launch, made just after the harness read its clock;
+  its kernel's name and whether its correlation id is the first are
   logged), not by the marker kernel's start, which lags its launch by the
   queue.
 - Each device operation goes to the innermost program span in which its
@@ -24,46 +26,25 @@ both once, after the window:
   before it ends). Each idle gap of the device gets, after the harness's
   label, the path of the innermost program span open at the midpoint of
   the host's wait before the launch that ended it:
-  `track f12/frame/obj.ba/obj.ba.stage2/obj.ba.iter`. The share of the idle
-  time inside program spans is given on both timelines: the rebuilt one
+  `track f12/frame/obj.ba/obj.ba.stage2/obj.ba.iter`; the harness passes
+  these labelled gaps to trace.breakdown. The share of the idle time inside
+  program spans is given on both timelines: the rebuilt one
   (`idle_in_program`, whose gaps are host time before a launch by
   construction) and the trace's own kernel times (`idle_in_program_trace`).
 
-A metric gets the Run alone. The port's records are drained from its
-profiler, whose log keeps them past the harness's reset until drained.
-
-TEMPORARY, until a benchmark PR lets trace.py keep the launch records and
-harness.py hand the drained spans to the Run (PERF.md, section 7): the
-stretch's torch.profiler is that of the harness's StretchControl, found
-among the process's objects by its type (`_stretch_control`), and the
-labelled gaps reach the result line's `breakdown` because `join` replaces
-the stretch's host ranges (`st.host`) with one range per gap it labels,
-before trace.breakdown reads them after the metrics. Nothing else may read
-`st.host` before the join; tests/test_portbench_spans.py fails if another
-module does. On a port without the span store, or a run without a
-stretch, `join` gives None and the metrics that read it report nothing.
+A metric gets the Run alone. On a run without a stretch or without launch
+records, `join` gives None and the metrics that read it report nothing.
 """
 
 from __future__ import annotations
 
 import bisect
-import gc
 import sys
 from dataclasses import dataclass, field
 
 from . import trace
 
-PROFILER = "cube_slam_tpu_torch.utils.profiler"
 SYNC = "sync"
-# gaps given a label in the breakdown (it keeps the longest 10)
-LABELLED_GAPS = 10
-
-
-@dataclass
-class Launch:
-    t: int                    # the runtime call's start, perf_counter_ns
-    ops: list                 # (name, start, end) of its device operations, perf_counter_ns
-    corr: int = 0             # the correlation id linking the call to its operations
 
 
 @dataclass
@@ -78,46 +59,6 @@ class Joined:
     idle_in_program: float | None = None            # share of the idle time inside a span below frame or lsd.detect
     idle_in_program_trace: float | None = None      # the same on the trace's own kernel times
     clock: dict = field(default_factory=dict)       # the clocks' agreement
-
-
-def _profiler():
-    prof = sys.modules.get(PROFILER)
-    return prof if prof is not None and hasattr(prof, "drain") else None
-
-
-def _stretch_control(run):
-    """TEMPORARY (see the module's docstring): the harness keeps no handle
-    on the stretch's profiler, so it is found by its type."""
-    for o in gc.get_objects():
-        if type(o) is trace.StretchControl and o.stretch is run.trace:
-            return o
-    return None
-
-
-def launches_of(events, is_device):
-    """Launch records of the kineto `events`: each runtime call (a `cu*`
-    name on the host) with the device operations of its correlation id.
-    Times on the trace's clock."""
-    ops = {}
-    for e in events:
-        if is_device(e):
-            ops.setdefault(e.correlation_id(), []).append((e.name(), e.start_ns(), e.end_ns()))
-    out = []
-    for e in events:
-        if not is_device(e) and e.name().startswith("cu") and e.correlation_id() in ops:
-            out.append(Launch(e.start_ns(), ops.pop(e.correlation_id()), e.correlation_id()))
-    out.sort(key=lambda launch: launch.t)
-    return out
-
-
-def to_host_clock(launches, marker_ns):
-    """Shift launches so that the first (the marker's) starts at
-    `marker_ns`; returns the shift (trace clock - host clock)."""
-    offset = launches[0].t - marker_ns
-    for launch in launches:
-        launch.t -= offset
-        launch.ops = [(n, a - offset, b - offset) for n, a, b in launch.ops]
-    return offset
 
 
 def attribute(spans, times):
@@ -179,17 +120,16 @@ def _idle(busy, lo, hi):
     return idle
 
 
-def join_records(spans, host, device_old, launches, frames, shift, self_ns):
+def join_records(spans, host, device_old, launches, frames, shift):
     """The join on hand-made inputs: `spans` the program's records, `host`
     the harness's (label, start, end) ranges of the stretch, `device_old`
     the stretch's device intervals as trace.Stretch holds them (mapped by
     the marker kernel's start), `launches` on the host clock (mapped by the
     marker's launch, in launch order), `frames` the stretch's frame count,
     `shift` the first mapping less the second (minus the marker kernel's lag
-    behind its launch), `self_ns` each span's self time (the profiler's
-    self_ns)."""
+    behind its launch)."""
     by_id = {s.id: s for s in spans}
-    j = Joined(spans, (host[0][1], host[-1][2]) if host else (0, 0), frames, self_ns=self_ns)
+    j = Joined(spans, (host[0][1], host[-1][2]) if host else (0, 0), frames, self_ns=self_ns(spans))
     for s in spans:
         j.subtree[s.id] = [0, 0, (s.counts or {}).get(SYNC, 0)]
     for launch, sid in zip(launches, attribute(spans, [launch.t for launch in launches])):
@@ -238,13 +178,9 @@ def join_records(spans, host, device_old, launches, frames, shift, self_ns):
         total = sum(b - a for a, b in idle)
         setattr(j, attr, _overlap(idle, covered) / total if total > 0 else None)
 
-    # the gaps trace.breakdown finds (on the first mapping), each labelled at the midpoint of the host's
-    # wait before the launch that ended it
-    busy = _merge([(a, b) for _, a, b in device_old])
-    gaps = [(busy[i][1], busy[i + 1][0]) for i in range(len(busy) - 1)]
-    if host and busy:
-        gaps = [(host[0][1], busy[0][0])] + gaps + [(busy[-1][1], host[-1][2])]
-    gaps = [(a, b) for a, b in gaps if b > a]
+    # the stretch's idle gaps (on the first mapping), each labelled at the midpoint of the host's wait before
+    # the launch that ended it
+    gaps = trace.idle_gaps(device_old, host)
     opening = {a: k for k, (_, _, a) in enumerate(ops)}
     mids = []
     for _, b in gaps:
@@ -271,24 +207,20 @@ def _below_frame_or_lsd(s, by_id):
     return (names[-1] == "frame" and len(chain) > 1) or "lsd.detect" in names
 
 
-def gap_ranges(j, host):
-    """Host ranges that make trace.breakdown label the longest gaps with
-    their program span: the first and the last gap (which carry the
-    stretch's bounds) and the LABELLED_GAPS longest, one range each."""
-    if not j.gaps:
-        return host
-    first, last = j.gaps[0], j.gaps[-1]
-    middle = sorted(j.gaps[1:-1], key=lambda g: g[1] - g[2])[:LABELLED_GAPS]   # longest first
-    return ([(first[0], host[0][1], first[2])] + middle + [(last[0], last[1], host[-1][2])])
+def self_ns(spans):
+    """span id -> its duration less its children's (children of one parent
+    do not overlap: one thread records)."""
+    out = {s.id: s.end - s.start for s in spans}
+    for s in spans:
+        if s.parent in out:
+            out[s.parent] -= s.end - s.start
+    return out
 
 
 def records(run):
-    """The port's spans of the window (drained once, cached in run.cache),
-    or None where the port has no span store."""
-    if "records" not in run.cache:
-        prof = _profiler()
-        run.cache["records"] = None if prof is None else [s for s in prof.drain() if s.end is not None]
-    return run.cache["records"]
+    """The port's closed spans of the window, as the harness drained them,
+    or None where it drained none."""
+    return None if run.spans is None else [s for s in run.spans if s.end is not None]
 
 
 def per_frame_counts(run, counter):
@@ -314,26 +246,10 @@ def join(run):
     if "spans" in run.cache:
         return run.cache["spans"]
     run.cache["spans"] = None
-    spans = records(run)
-    st = run.trace
-    if spans is None or st is None or not st.host:
+    spans, st = records(run), run.trace
+    if spans is None or st is None or not st.host or not st.launches:
         return None
-    ctl = _stretch_control(run)
-    if ctl is None or ctl.prof is None:
-        return None
-    torch = ctl.torch
-    events = ctl.prof.profiler.kineto_results.events()
-    def is_device(e):
-        return e.device_type() == torch.autograd.DeviceType.CUDA
-
-    launches = launches_of(events, is_device)
-    if not launches:
-        return None
-    first_op = min(e.start_ns() for e in events if is_device(e))
-    shift = to_host_clock(launches, ctl._marker_ns) - (first_op - ctl._marker_ns)
-    host = list(st.host)
-    j = join_records(spans, host, st.device, launches, st.frames, shift, _profiler().self_ns(spans))
-    st.host = gap_ranges(j, host)   # TEMPORARY (see the module's docstring)
+    j = join_records(spans, st.host, st.device, st.launches, st.frames, st.shift)
     run.cache["spans"] = j
     _log(j)
     return j

@@ -114,7 +114,7 @@ def test_metrics_find_their_readers_and_cells(bench):
     e2e = {m["name"] for m in bench["end_to_end"]}
     assert "setup_s" in e2e
     for m in bench["end_to_end"] + bench["per_layer"]:
-        assert os.path.exists(os.path.join(BENCH_DIR, "metrics", f"{m['name']}.py")), m["name"]
+        assert os.path.exists(os.path.join(BENCH_DIR, "metrics", f"{m['name'].split('.')[0]}.py")), m["name"]
         assert set(m.get("workloads", cells)) <= cells
     for m in bench["end_to_end"]:
         assert m["source"] in ("host_clock", "device_trace")

@@ -1,6 +1,7 @@
 """The metrics' arithmetic on hand-made runs: the rate over a window, the
 window's close, the spans per call and per frame, the union of device
-intervals, the EDT's byte count and the breakdown's labels."""
+intervals, the card's busy time per frame over a window's device trace,
+the EDT's byte count and the breakdown's labels."""
 
 import types
 
@@ -10,18 +11,83 @@ import pytest
 from portbench import trace
 from portbench.checks import line_err
 from portbench.harness import FrameRecord
-from portbench.metrics import (device_idle_pct, edt_roofline_pct, frames_per_s, keyframe_ms,
+from portbench.metrics import (device_idle_pct, device_ms_per_frame, edt_roofline_pct, frames_per_s, keyframe_ms,
                                lines_ms, object_ba_ms, track_ms)
 
 
-def _run(frames, window_s=2.0, stretch=None, edt_pixels=()):
-    return types.SimpleNamespace(frames=frames, window_s=window_s, trace=stretch, edt_pixels=list(edt_pixels))
+def _run(frames, window_s=2.0, stretch=None, edt_pixels=(), device_busy_s=None):
+    return types.SimpleNamespace(frames=frames, window_s=window_s, trace=stretch, edt_pixels=list(edt_pixels),
+                                 device_busy_s=device_busy_s)
 
 
 def test_rate_counts_completed_frames_over_the_window():
     frames = [FrameRecord(0, i, 0, 10.0, "tracked") for i in range(9)] + [FrameRecord(0, 9, 0, 5.0, "raised")]
     assert frames_per_s.read(_run(frames, window_s=3.0)) == pytest.approx(3.0)
     assert frames_per_s.read(_run([], window_s=0.0)) is None
+
+
+def test_device_ms_per_frame_is_the_windows_busy_time_over_its_completed_frames():
+    frames = [FrameRecord(0, i, 0, 10.0, "tracked") for i in range(4)] + [FrameRecord(0, 4, 0, 5.0, "raised")]
+    assert device_ms_per_frame.read(_run(frames, device_busy_s=0.25)) == pytest.approx(62.5)
+    assert device_ms_per_frame.read(_run(frames)) is None
+    assert device_ms_per_frame.read(_run(frames[4:], device_busy_s=0.25)) is None
+
+
+class _Event:
+    def __init__(self, a, b, device):
+        self.a, self.b, self.device = a, b, device
+
+    def start_ns(self):
+        return self.a
+
+    def end_ns(self):
+        return self.b
+
+    def device_type(self):
+        return self.device
+
+
+class _Torch:
+    """What WindowTrace calls of torch, with a profiler that hands back
+    `events` (start, end in ns, on the device or not)."""
+
+    def __init__(self, events):
+        self.events = events
+        self.cuda = types.SimpleNamespace(synchronize=lambda: None)
+        self.autograd = types.SimpleNamespace(DeviceType=types.SimpleNamespace(CUDA="cuda"))
+
+    def profile(self):
+        prof = types.SimpleNamespace(start=lambda: None, stop=lambda: None)
+        events = types.SimpleNamespace(events=lambda: [_Event(a, b, d) for a, b, d in self.events])
+        prof.profiler = types.SimpleNamespace(kineto_results=events)
+        return prof
+
+
+@pytest.mark.parametrize("covered, raises", [(1.0, False), (0.5, True)])
+def test_the_window_trace_reads_busy_time_and_refuses_a_lost_tail(monkeypatch, covered, raises):
+    import time
+
+    torch = _Torch([])
+    wt = trace.WindowTrace(torch, "cuda")
+    monkeypatch.setattr(wt, "_profile", torch.profile)
+    wt.start()
+    time.sleep(0.05)
+    end = int(covered * (time.perf_counter() - wt._t0 + 0.01) * 1e9)
+    torch.events = [(0, 10_000_000, "cuda"), (5_000_000, 15_000_000, "cuda"), (0, end, "cpu"),
+                    (end - 1_000_000, end, "cuda")]
+    if raises:
+        with pytest.raises(RuntimeError, match="lost records"):
+            wt.stop_and_read()
+        return
+    busy, ops, _ = wt.stop_and_read()
+    assert ops == 3 and busy == pytest.approx(16e-3)
+
+
+def test_a_split_metric_is_read_by_its_quantitys_reader():
+    from portbench import harness
+
+    assert harness.reader("metrics", "track_ms.kitti") is track_ms
+    assert harness.reader("metrics", "device_ms_per_frame") is device_ms_per_frame
 
 
 def test_spans_leave_out_the_profiled_stretch():
@@ -135,3 +201,30 @@ def test_motion_errors_read_degenerate_poses_as_wrong():
     errs = truth.motion_errors(broken, Twc)
     assert len(errs) == 3 and errs[1] == 180.0 and errs[2] == 180.0
     assert truth.motion_errors([(0, Twc[0]), (1, None), (2, None), (3, None)], Twc) is None
+
+
+def test_motion_err_judges_a_cut_episode_from_its_initialization():
+    from portbench.checks import motion_err
+    from portbench.harness import EpisodeRecord
+
+    truth_Twc = [np.eye(4) for _ in range(10)]
+    for i, T in enumerate(truth_Twc):
+        T[:3, 3] = [0.1 * i, 0.02 * i * i, 0.0]
+    ep = types.SimpleNamespace(frames=[None] * 10, truth_Twc=truth_Twc)
+
+    def reads(n, posed, init=3):
+        """motion_err of one episode that ran `n` frames, initialized at
+        `init` on the reference frame 0, with `posed` frames posed truly."""
+        Twc = [(f, truth_Twc[f] if f in posed else None) for f in range(n) if f == 0 or f >= init]
+        e = EpisodeRecord(0, 0, Twc, init, frames_run=n)
+        return motion_err.read(types.SimpleNamespace(episodes=[e], eps=[ep], ep=ep))
+
+    assert reads(10, {0, *range(3, 10)}) == pytest.approx(0.0, abs=1e-6)    # whole: judged as it was
+    assert reads(4, {0, 3}) == 0.0                                         # cut at its initialization
+    assert reads(5, {0, 3, 4}) == pytest.approx(0.0, abs=1e-6)             # one frame tracked after it
+    assert reads(6, {0, 3, 4}) == float("inf")                             # the frame after that lost
+    assert reads(8, {0, 3, 4, 5}) == float("inf")                          # half of them lost
+    assert reads(5, set()) == 0.0                                          # cut before its first pose
+    bent = EpisodeRecord(0, 0, [(0, truth_Twc[0]), (3, truth_Twc[3]), (4, truth_Twc[3]), (5, truth_Twc[5])], 3,
+                         frames_run=6)
+    assert motion_err.read(types.SimpleNamespace(episodes=[bent], eps=[ep], ep=ep)) > 90.0

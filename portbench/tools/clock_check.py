@@ -73,7 +73,7 @@ def main(argv=None):
     ap.add_argument("--seconds", type=float, required=True)
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
-    from portbench import drive, harness, spans, trace
+    from portbench import drive, harness, trace
 
     harness.fix_host_threads()
     import torch
@@ -129,15 +129,15 @@ def main(argv=None):
         print("clock_check.py: no stretch ran", file=sys.stderr)
         return 1
     events = ctl.prof.profiler.kineto_results.events()
-    launches = spans.launches_of(events, lambda e: e.device_type() == torch.autograd.DeviceType.CUDA)
+    launches = trace.launches_of(events, lambda e: e.device_type() == torch.autograd.DeviceType.CUDA)
     marker = launches[0]
     spins = [(lau.t, lau.ops[0][1]) for lau in launches if "spin" in lau.ops[0][0]]
     ev0 = held["ev0"]
     probes = [(h, round(ev0.elapsed_time(ev) * 1e6)) for h, ev in held["probes"]]
-    rows, out = compare(probes, (ctl._marker_ns, marker.t, marker.ops[0][1]), spins)
+    rows, out = compare(probes, (ctl.stretch.marker_ns, marker.t, marker.ops[0][1]), spins)
     out.update(workload=cell.name, seed=args.seed, probes=len(rows), marker=marker.ops[0][0][:80],
                marker_first_launched=marker.corr == min(lau.corr for lau in launches),
-               trace_less_perf_ns=marker.t - ctl._marker_ns, correct=result["correct"],
+               trace_less_perf_ns=marker.t - ctl.stretch.marker_ns, correct=result["correct"],
                card=harness.nvidia_smi(), **held["clocks"])
     for r in rows:
         harness.log("[clock] " + " ".join(f"{k} {v}" for k, v in r.items()))
